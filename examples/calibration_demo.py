@@ -1,10 +1,9 @@
-"""Runtime performance learning: prediction, calibration, backend routing.
+"""Runtime performance learning: calibration, prediction, FFT routing.
 
 Counterpart of the reference's RuntimeLearningDemo /
-PerformanceCalibrationDemo / AdaptiveThresholdTuner examples: predict a
-transform's cost with a confidence interval, tighten the interval by
-measuring the actual device, and inspect how the backend router uses the
-cost model to pick the Pallas/jnp/FFT paths.
+PerformanceCalibrationDemo / AdaptiveThresholdTuner examples: measure the
+actual device once, predict a transform's cost with a confidence interval
+from that measurement, and inspect the FFT-vs-direct routing rule.
 Run: python examples/calibration_demo.py
 """
 
@@ -25,27 +24,21 @@ def main() -> None:
     print(f"device: {dev.platform} ({dev.device_kind})")
     info = get_performance_info()
     print(f"  {info.description}")
-    print(f"  devices: {info.device_count}, pallas kernels: {info.pallas_kernels}")
-
-    # --- prediction BEFORE calibration: wide platform-default interval ---
-    pred = cost_model.estimate_processing_time(65536, levels=6, batch=8)
-    print(f"\npredicted 8x64K 6-level round-trip: "
-          f"{pred.estimated_seconds * 1e3:.2f} ms "
-          f"[{pred.lower_seconds * 1e3:.2f}, {pred.upper_seconds * 1e3:.2f}] "
-          f"(calibrated={pred.calibrated})")
+    print(f"  devices: {info.device_count}")
 
     # --- calibrate: measure this device, persist the sustained rate ------
+    # (an uncalibrated device kind has no prediction: it raises)
     rate = cost_model.calibrate(sizes=(16384,), batch=4, persist=True)
     print(f"calibrated sustained rate: {rate / 1e6:.1f} Msamples/s")
 
-    pred2 = cost_model.estimate_processing_time(65536, levels=6, batch=8)
-    print(f"after calibration: {pred2.estimated_seconds * 1e3:.2f} ms "
-          f"[{pred2.lower_seconds * 1e3:.2f}, {pred2.upper_seconds * 1e3:.2f}] "
-          f"(calibrated={pred2.calibrated})")
+    pred = cost_model.estimate_processing_time(65536, levels=6, batch=8)
+    print(f"predicted 8x64K 6-level round-trip: "
+          f"{pred.estimated_seconds * 1e3:.2f} ms "
+          f"[{pred.lower_seconds * 1e3:.2f}, {pred.upper_seconds * 1e3:.2f}]")
 
     # --- FFT-vs-unrolled routing (the FftHeuristics counterpart) ---------
-    # The measured on-chip crossover favors the unrolled à trous form for
-    # every builtin filter; FFT wins only for >=64-tap custom filters.
+    # The unrolled à trous form serves every builtin filter; FFT engages
+    # only for >=64-tap custom filters.
     print("\nFFT routing decisions (filter taps -> use FFT?):")
     for name in ("db4", "sym8", "dmey"):
         taps = len(wavelet(name).dec_lo)

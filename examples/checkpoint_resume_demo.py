@@ -75,7 +75,7 @@ def main() -> None:
     assert dev == 0.0, "checkpoint/resume must be bit-exact"
 
     # --- ground truth 2: the whole-signal transform (left-history contract;
-    # tolerance covers the fused MXU tier's bf16_3x default on TPU) ---------
+    # tolerance covers float32 summation order) -------------------------------
     whole = vw.modwt_multilevel(jnp.asarray(signal), "db4", levels=3, boundary="zero")
     wdev = float(jnp.max(jnp.abs(resumed_d1 - whole.details[0])))
     print(f"resumed stream vs whole-signal transform: {wdev:.2e}")

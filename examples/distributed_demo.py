@@ -4,8 +4,8 @@ The multi-chip story: batch sharding (data parallel), long-signal tiling
 with ppermute halo exchange (sequence parallel), and scale/signal-parallel
 CWT — all bit-identical to the single-device transforms.
 Run: python examples/distributed_demo.py
-(sets up an 8-device virtual CPU mesh; on a real TPU slice the same code
-runs over the physical mesh, collectives riding ICI.)
+(sets up an 8-device virtual CPU mesh when fewer devices are attached; on
+real cards the same code runs over the physical mesh.)
 """
 
 import os
@@ -21,7 +21,7 @@ if "--xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "
 
 import jax
 
-if jax.default_backend() != "tpu" and len(jax.devices()) < 8:
+if len(jax.devices()) < 8:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""Decimated DWT pyramid + the fused MXU kernel precision ladder.
+"""Decimated DWT pyramid: perfect reconstruction and the energy split.
 
 Run: python examples/dwt_and_kernels_demo.py
 """
@@ -8,7 +8,6 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -35,21 +34,6 @@ def main() -> None:
     # matching phase — both transforms agree on signal energy split
     e_dwt = float((res.approx**2).sum() + (res.detail**2).sum())
     print(f"orthogonal-energy check (db4): {abs(e_dwt / float((x**2).sum()) - 1):.2e}")
-
-    # --- fused kernel precision ladder -------------------------------------
-    # On TPU the fused MXU kernels serve modwt_multilevel automatically;
-    # pick the matmul emulation depth globally or per call:
-    print(f"default fused precision: {vw.get_fused_precision()}")
-    for precision in ("float32", "bf16_3x"):
-        vw.set_fused_precision(precision)
-        res_ml = vw.modwt_multilevel(x, "db4", levels=4)  # pallas on TPU
-        xr_ml = vw.imodwt_multilevel(res_ml, "db4")
-        print(
-            f"  {precision:8s}: round-trip max err "
-            f"{float(jnp.max(jnp.abs(x - xr_ml))):.2e} "
-            f"(backend: {'pallas' if jax.default_backend() == 'tpu' else 'jnp'})"
-        )
-    vw.set_fused_precision("bf16_3x")
 
 
 if __name__ == "__main__":

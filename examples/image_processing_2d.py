@@ -1,7 +1,7 @@
 """2-D wavelet processing: subband analysis and image denoising.
 
 Beyond the reference's (1-D only) scope: the separable 2-D transforms are
-two batched 1-D passes per level — TPU-natural.  Decompose a synthetic
+two batched 1-D passes per level.  Decompose a synthetic
 image into oriented subbands, then denoise it.
 Run: python examples/image_processing_2d.py
 """

@@ -3,9 +3,9 @@
 Counterpart of the reference's MemoryEfficiencyMODWTDemo and
 BatchStreamingFlushExample (vectorwave-examples/...): process an
 arbitrarily long signal in fixed-size blocks with O(levels * filter)
-carried state — and drain the tail correctly with flush().  On TPU the
-deeper point is that block streaming keeps the working set in HBM
-bounded regardless of total signal length.
+carried state — and drain the tail correctly with flush().  The deeper
+point is that block streaming keeps the device working set bounded
+regardless of total signal length.
 Run: python examples/memory_and_flush_demo.py
 """
 

@@ -22,7 +22,7 @@ if "--xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "
 
 import jax
 
-if jax.default_backend() != "tpu" and len(jax.devices()) < 8:
+if len(jax.devices()) < 8:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
@@ -55,9 +55,9 @@ def main() -> None:
 
     # The analytic communication model: exact bytes per chip per transform.
     rep = communication_report(mesh, "db4", levels=4, n=4096, batch=4)
-    print(f"ICI halo bytes/chip: {rep.ici_bytes_per_chip}  "
-          f"DCN bytes/host: {rep.dcn_bytes_per_host}  "
-          f"comm/compute: {rep.ici_fraction_of_compute_bytes:.4f}")
+    print(f"halo bytes/chip: {rep.halo_bytes_per_chip}  "
+          f"bytes between hosts: {rep.host_bytes_per_host}  "
+          f"comm/compute: {rep.halo_fraction_of_compute_bytes:.4f}")
 
     # CWT: scales shard over "host" (embarrassingly parallel), signal tiles
     # over "chip" — the 64-scale-on-1M-samples layout at demo size.

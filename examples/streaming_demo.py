@@ -58,23 +58,22 @@ def main() -> None:
     after = float(np.sqrt(np.mean((np.asarray(cleaned) - clean_ref) ** 2)))
     print(f"streaming denoise RMSE: {before:.3f} -> {after:.3f}")
 
-    # --- kernel-tier streaming denoiser (fused one-pass kernel per block;
-    # routes automatically on TPU f32 zero-boundary — force for the demo) --
+    # --- the same denoiser as a pure step function (jit/scan-friendly) ----
     from vectorwave_tpu.streaming import (
-        kernel_streaming_denoiser_init,
-        streaming_denoise_block_kernel,
+        streaming_denoise_block,
+        streaming_denoiser_init,
     )
 
-    st = kernel_streaming_denoiser_init("sym8", levels=4)
+    st = streaming_denoiser_init("sym8", levels=4)
     outs = []
     for i in range(0, 4096, 512):
-        st, blk = streaming_denoise_block_kernel(
-            st, stream[i : i + 512], "sym8", levels=4
+        st, blk = streaming_denoise_block(
+            st, jnp.asarray(stream[i : i + 512], jnp.float32), "sym8"
         )
         outs.append(np.asarray(blk))
-    fused = np.concatenate(outs, axis=-1)
-    after_k = float(np.sqrt(np.mean((fused - clean_ref) ** 2)))
-    print(f"kernel-tier streaming denoise RMSE: {before:.3f} -> {after_k:.3f}")
+    functional = np.concatenate(outs, axis=-1)
+    after_f = float(np.sqrt(np.mean((functional - clean_ref) ** 2)))
+    print(f"functional streaming denoise RMSE: {before:.3f} -> {after_f:.3f}")
 
 
 if __name__ == "__main__":

@@ -1,11 +1,10 @@
 """Tolerance-driven precision routing (docs/API.md "Accuracy").
 
 The reference's public API is f64 end-to-end and its default round trip
-meets <1e-9 max error (ModwtPeriodicRoundTripTest.java:37).  On TPU the
+meets <1e-9 max error (ModwtPeriodicRoundTripTest.java:37).  Here the
 same contract is requested with a number, not a tier name:
-``modwt_multilevel(x, w, tolerance=1e-10)`` routes to the exact
-(double-float + error-free sliced MXU dots) tier and the round trip is
-typically bit-exact against the f32 input.
+``modwt_multilevel(x, w, tolerance=1e-10)`` routes to the exact tier, which
+runs the cascade in float64 (it needs ``jax_enable_x64``).
 """
 
 import pathlib
@@ -14,9 +13,12 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 import vectorwave_tpu as vw
+
+jax.config.update("jax_enable_x64", True)
 
 
 def main():
@@ -26,21 +28,19 @@ def main():
     for tol in (1e-2, 1e-5, 1e-10):
         tier = vw.resolve_tolerance(tol)
         res = vw.modwt_multilevel(x, "db4", levels=5, tolerance=tol)
-        xr = vw.imodwt_multilevel(res, "db4")
+        xr = vw.imodwt_multilevel(res, "db4", tolerance=tol)
         err = np.asarray(xr, np.float64) - np.asarray(x, np.float64)
         rmse = float(np.sqrt(np.mean(err ** 2)))
-        kind = type(res).__name__
-        print(f"tolerance {tol:g}: tier={tier:8s} result={kind:22s} "
+        print(f"tolerance {tol:g}: tier={tier:8s} planes={res.approx.dtype} "
               f"round-trip rmse {rmse:.2e}")
         assert rmse <= tol, (tol, rmse)
 
-    # exact-tier coefficients: combine hi + lo in f64 on the host
-    res = vw.modwt_multilevel(x, "db4", levels=5, tolerance=1e-10)
-    d1 = np.asarray(res.details[0], np.float64) + np.asarray(
-        res.details_lo[0], np.float64
-    )
-    print(f"exact-tier level-1 detail carries ~48 bits: "
-          f"|d1| max {np.abs(d1).max():.6f}")
+    # without 64-bit mode the exact tier refuses instead of returning float32
+    with jax.enable_x64(False):
+        try:
+            vw.modwt_multilevel(x, "db4", levels=5, tolerance=1e-10)
+        except vw.InvalidArgumentError as exc:
+            print(f"without x64: {str(exc).splitlines()[0]}")
 
 
 if __name__ == "__main__":

@@ -100,3 +100,34 @@ def modwt_multilevel_golden(x, w, levels, boundary="periodic"):
         details.append(convolve_analysis(current, high, spacing, boundary))
         current = convolve_analysis(current, low, spacing, boundary)
     return details, current
+
+
+def imodwt_multilevel_golden(details, approx, w, boundary="periodic"):
+    """Cascade reconstruction for periodic/zero boundaries
+    (MultiLevelMODWTTransform.reconstruct): adjoint (t + spacing*l) reads."""
+    low = w.rec_lo * INV_SQRT2
+    high = w.rec_hi * INV_SQRT2
+    current = np.asarray(approx, dtype=np.float64)
+    for level in range(len(details), 0, -1):
+        spacing = 1 << (level - 1)
+        current = convolve_synthesis(
+            current, low, spacing, boundary
+        ) + convolve_synthesis(details[level - 1], high, spacing, boundary)
+    return current
+
+
+def denoise_multilevel_golden(x, w, levels, boundary="periodic", mode="soft"):
+    """Universal-threshold multi-level denoise (WaveletDenoiser.
+    denoiseMultiLevel): sigma = median|d_1| / 0.6745, level-j threshold
+    sigma / sqrt(2^j) * sqrt(2 ln N), shrink the details, reconstruct."""
+    details, approx = modwt_multilevel_golden(x, w, levels, boundary)
+    n = len(x)
+    sigma = np.median(np.abs(details[0])) / 0.6745
+    shrunk = []
+    for level, d in enumerate(details, start=1):
+        t = sigma / math.sqrt(2.0**level) * math.sqrt(2.0 * math.log(n))
+        if mode == "soft":
+            shrunk.append(np.sign(d) * np.maximum(np.abs(d) - t, 0.0))
+        else:
+            shrunk.append(np.where(np.abs(d) > t, d, 0.0))
+    return imodwt_multilevel_golden(shrunk, approx, w, boundary)

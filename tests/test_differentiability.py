@@ -1,17 +1,16 @@
 """Differentiability: gradients flow through every transform tier.
 
 A capability beyond the reference (Java, non-differentiable): wavelet-domain
-losses can train upstream models.  The fused Pallas kernels carry custom VJPs
-(the synthesis structure with the analysis filters is the exact adjoint).
+losses can train upstream models.  The analysis map is linear, and its
+adjoint is the synthesis structure with the analysis filters, so the float32
+gradients must match the float64 ones and finite differences.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import vectorwave_tpu as vw
-from vectorwave_tpu.kernels import fused_analysis, fused_synthesis
 from .conftest import composite_sin
 
 
@@ -38,41 +37,37 @@ def test_grad_through_jnp_modwt():
 
 
 def test_pallas_analysis_vjp_matches_jnp():
+    """float32 analysis gradient == the float64 one (the adjoint rule)."""
     x = _x32((2, 1024))
 
-    def loss_pallas(x):
-        d, a = fused_analysis(x, "db4", levels=4, interpret=True, tile=512,
-                              precision="float32")
-        return sum((dd**2).sum() for dd in d) * 0.5 + 0.25 * (a**2).sum()
-
-    def loss_jnp(x):
-        res = vw.modwt_multilevel(x, "db4", levels=4, backend="jnp")
+    def loss(x):
+        res = vw.modwt_multilevel(x, "db4", levels=4)
         return sum((dd**2).sum() for dd in res.details) * 0.5 + 0.25 * (
             res.approx**2
         ).sum()
 
-    g1 = jax.grad(loss_pallas)(x)
-    g2 = jax.grad(loss_jnp)(x)
+    g1 = jax.grad(loss)(x)
+    g2 = jax.grad(loss)(x.astype(jnp.float64))
+    assert g1.dtype == jnp.float32
     np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), atol=5e-6)
 
 
 def test_pallas_synthesis_vjp_matches_jnp():
+    """float32 synthesis gradients == the float64 ones, every plane."""
     x = _x32((2, 1024), seed=1)
-    res = vw.modwt_multilevel(x, "db4", levels=3, backend="jnp")
+    res = vw.modwt_multilevel(x, "db4", levels=3)
 
     def loss_syn(details, approx):
-        out = fused_synthesis(details, approx, "db4", interpret=True, tile=512,
-                              precision="float32")
-        return (out**2).sum()
-
-    def loss_syn_jnp(details, approx):
         out = vw.imodwt_multilevel(
-            vw.MultiLevelMODWTResult(details, approx), "db4", backend="jnp"
+            vw.MultiLevelMODWTResult(details, approx), "db4"
         )
         return (out**2).sum()
 
     ga = jax.grad(loss_syn, argnums=(0, 1))(tuple(res.details), res.approx)
-    gb = jax.grad(loss_syn_jnp, argnums=(0, 1))(tuple(res.details), res.approx)
+    gb = jax.grad(loss_syn, argnums=(0, 1))(
+        tuple(d.astype(jnp.float64) for d in res.details),
+        res.approx.astype(jnp.float64),
+    )
     for a, b in zip(ga[0], gb[0]):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=5e-6)
     np.testing.assert_allclose(np.asarray(ga[1]), np.asarray(gb[1]), atol=5e-6)
@@ -80,17 +75,18 @@ def test_pallas_synthesis_vjp_matches_jnp():
 
 def test_biorthogonal_pallas_vjp_finite_difference():
     """dec != rec: the adjoint must use the forward map's own filters."""
-    x = _x32((1, 512), seed=2)
+    x = _x32((1, 512), seed=2).astype(jnp.float64)
 
     def loss(x):
-        d, a = fused_analysis(x, "bior2.2", levels=2, interpret=True, tile=256)
+        res = vw.modwt_multilevel(x, "bior2.2", levels=2)
+        d, a = res.details, res.approx
         return (d[0] ** 2).sum() + (d[1] * 2).sum() + (a**2).sum()
 
     g = jax.grad(loss)(x)
-    eps = 1e-2
+    eps = 1e-4
     for i in (37, 137, 400):
         fd = (loss(x.at[0, i].add(eps)) - loss(x.at[0, i].add(-eps))) / (2 * eps)
-        assert abs(float(g[0, i]) - float(fd)) < 5e-3
+        assert abs(float(g[0, i]) - float(fd)) < 1e-6
 
 
 def test_grad_through_denoiser():

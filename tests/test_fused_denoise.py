@@ -1,19 +1,17 @@
-"""One-pass fused denoise kernel (analysis -> threshold -> synthesis in
-VMEM; kernels/modwt_mxu.run_denoise_composite).
+"""Multi-level denoise against the float64 oracle.
 
-Parity oracle: the 3-call path with IDENTICAL thresholds (the kernel must
-reproduce reference semantics, WaveletDenoiser.java:155-171 — analysis,
-per-level shrink with sigma/sqrt(2^j) scaling, reconstruction).  The fused
-path's HBM traffic is 8 B/sample vs the 3-call path's 68; see
-tools/probe_write_wall.py for why that is the round trip's wall.
+``denoise_multilevel`` is analysis -> per-level shrink with sigma/sqrt(2^j)
+scaling -> reconstruction (reference semantics, WaveletDenoiser.java:
+155-171).  The oracle runs the same public pieces in float64; the float32
+path must agree to float32 rounding, values and gradients alike.
 """
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
 import vectorwave_tpu as vw
-from vectorwave_tpu.kernels.modwt_pallas import fused_denoise_multilevel
 from vectorwave_tpu.ops.thresholds import (
     apply_threshold,
     mad_sigma,
@@ -31,6 +29,21 @@ def _thresholds(res, n, levels):
     )
 
 
+def _oracle(x, name, levels, boundary, mode):
+    """Three public calls in float64 with the thresholds made explicit."""
+    x64 = jnp.asarray(np.asarray(x, np.float64))
+    n = x64.shape[-1]
+    res = vw.modwt_multilevel(x64, name, levels=levels, boundary=boundary)
+    ths = _thresholds(res, n, levels)
+    nd = tuple(
+        apply_threshold(d, ths[..., j:j + 1], mode)
+        for j, d in enumerate(res.details)
+    )
+    return vw.imodwt_multilevel(
+        MultiLevelMODWTResult(nd, res.approx), name, boundary=boundary,
+    )
+
+
 @pytest.mark.parametrize(
     "b,n,name,levels,boundary,mode",
     [
@@ -45,123 +58,81 @@ def test_fused_denoise_matches_three_call_path(b, n, name, levels, boundary,
                                                mode):
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((b, n)), jnp.float32)
-    res = vw.modwt_multilevel(x, name, levels=levels, boundary=boundary,
-                              backend="jnp")
-    ths = _thresholds(res, n, levels)
-    got = fused_denoise_multilevel(
-        x, name, levels=levels, thresholds=ths, boundary=boundary, mode=mode,
-        interpret=True, precision="float32",
-    )
-    assert got is not None, "kernel unexpectedly fell back"
-    nd = tuple(
-        apply_threshold(d, ths[..., j:j + 1], mode)
-        for j, d in enumerate(res.details)
-    )
-    ref = vw.imodwt_multilevel(
-        MultiLevelMODWTResult(nd, res.approx), name, boundary=boundary,
-        backend="jnp",
-    )
+    got = vw.denoise_multilevel(x, name, levels=levels, boundary=boundary,
+                                method="universal", mode=mode)
+    assert got.dtype == jnp.float32 and got.shape == x.shape
+    ref = _oracle(x, name, levels, boundary, mode)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=5e-6)
 
 
 def test_fused_denoise_short_signal_falls_back():
-    """Signals below the tile floor return None (the public API then takes
-    the 3-call path)."""
-    x = jnp.zeros((1, 512), jnp.float32)
-    ths = jnp.ones((1, 5), jnp.float32)
-    assert fused_denoise_multilevel(
-        x, "haar", levels=5, thresholds=ths, interpret=True,
-        precision="float32",
-    ) is None
+    """Short signals take the same path and keep oracle parity."""
+    x = jnp.asarray(np.random.default_rng(7).standard_normal((1, 512)),
+                    jnp.float32)
+    got = vw.denoise_multilevel(x, "haar", levels=5)
+    np.testing.assert_allclose(
+        np.asarray(got), np.asarray(_oracle(x, "haar", 5, "periodic", "soft")),
+        atol=5e-6,
+    )
 
 
 def test_fused_denoise_symmetric_falls_back():
-    x = jnp.zeros((1, 4096), jnp.float32)
-    ths = jnp.ones((1, 3), jnp.float32)
-    assert fused_denoise_multilevel(
-        x, "db4", levels=3, thresholds=ths, boundary="symmetric",
-        interpret=True, precision="float32",
-    ) is None
+    x = jnp.asarray(np.random.default_rng(8).standard_normal((1, 4096)),
+                    jnp.float32)
+    got = vw.denoise_multilevel(x, "db4", levels=3, boundary="symmetric")
+    np.testing.assert_allclose(
+        np.asarray(got),
+        np.asarray(_oracle(x, "db4", 3, "symmetric", "soft")),
+        atol=5e-6,
+    )
 
 
-def test_public_api_routes_and_matches(monkeypatch):
-    """denoise_multilevel with backend forced to pallas must agree with the
-    jnp path end to end (thresholds computed internally both times)."""
+def test_public_api_routes_and_matches():
+    """'auto' and 'jnp' are one path (identical output); the removed
+    'pallas' kernel tier is rejected."""
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.standard_normal((2, 4096)), jnp.float32)
     ref = vw.denoise_multilevel(x, "db4", levels=4, method="universal",
                                 mode="soft")
-    import importlib
-
-    dn = importlib.import_module("vectorwave_tpu.denoise.denoiser")
-
-    called = {}
-    orig = dn._try_fused_denoise
-
-    def spy(*a, **k):
-        out = orig(*a, **k)
-        called["fused"] = out is not None
-        return out
-
-    monkeypatch.setattr(dn, "_try_fused_denoise", spy)
-    vw.set_backend("pallas")
+    vw.set_backend("jnp")
     try:
         got = vw.denoise_multilevel(x, "db4", levels=4, method="universal",
                                     mode="soft")
     finally:
         vw.set_backend("auto")
-    assert called.get("fused"), "pallas backend did not route to the fused kernel"
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-4)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    with pytest.raises(vw.InvalidConfigurationError):
+        vw.set_backend("pallas")
+    assert vw.get_backend() == "auto"
 
 
 def test_fused_denoise_gradients_match_jnp_path():
-    """jax.grad through the fused kernel (custom VJP: recompute-based
-    adjoints via the composite kernels) must match the jnp 3-call path,
-    for both x and the thresholds — including the threshold's own
-    dependence on x through the sort-free median's custom JVP."""
-    import jax
-
+    """jax.grad of a denoising loss in float32 must match float64, for the
+    input and through the thresholds' own dependence on x (the sort-free
+    median's custom JVP)."""
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.standard_normal((2, 2048)), jnp.float32)
-    n, levels = 2048, 3
+    n = 2048
 
-    def loss_fused(y):
-        res = vw.modwt_multilevel(y, "db4", levels=levels, backend="jnp")
-        ths = _thresholds(res, n, levels)
-        out = fused_denoise_multilevel(
-            y, "db4", levels=levels, thresholds=ths, mode="soft",
-            interpret=True, precision="float32",
-        )
-        w_ = jnp.arange(n, dtype=jnp.float32)
+    def loss(y):
+        out = vw.denoise_multilevel(y, "db4", levels=3, method="universal",
+                                    mode="soft")
+        w_ = jnp.arange(n, dtype=y.dtype)
         return jnp.sum(out**2 * w_)
 
-    def loss_jnp(y):
-        res = vw.modwt_multilevel(y, "db4", levels=levels, backend="jnp")
-        ths = _thresholds(res, n, levels)
-        nd = tuple(
-            apply_threshold(d, ths[..., j:j + 1], "soft")
-            for j, d in enumerate(res.details)
-        )
-        out = vw.imodwt_multilevel(
-            MultiLevelMODWTResult(nd, res.approx), "db4", backend="jnp"
-        )
-        w_ = jnp.arange(n, dtype=jnp.float32)
-        return jnp.sum(out**2 * w_)
-
-    gf = jax.grad(loss_fused)(x)
-    gj = jax.grad(loss_jnp)(x)
-    scale = float(jnp.max(jnp.abs(gj)))
-    np.testing.assert_allclose(np.asarray(gf), np.asarray(gj),
+    g32 = jax.grad(loss)(x)
+    g64 = jax.grad(loss)(x.astype(jnp.float64))
+    scale = float(jnp.max(jnp.abs(g64)))
+    np.testing.assert_allclose(np.asarray(g32), np.asarray(g64),
                                atol=3e-6 * scale)
 
 
 def test_public_denoise_grad_end_to_end():
-    """jax.grad(denoise_multilevel) works with the fused routing forced on
-    (the round-2 API guarantee 'every transform is differentiable')."""
-    import jax
-
+    """jax.grad(denoise_multilevel) is finite and matches central finite
+    differences in float64 (the API guarantee 'every transform is
+    differentiable')."""
     rng = np.random.default_rng(6)
-    x = jnp.asarray(rng.standard_normal(2048), jnp.float32)
+    x = jnp.asarray(rng.standard_normal(2048), jnp.float64)
 
     def loss(y):
         return jnp.sum(
@@ -169,21 +140,12 @@ def test_public_denoise_grad_end_to_end():
                                   mode="soft") ** 2
         )
 
-    vw.set_backend("pallas")
-    vw.set_fused_precision("float32")
-    try:
-        gk = jax.grad(loss)(x)
-    finally:
-        vw.set_backend("auto")
-        vw.set_fused_precision("bf16_3x")
-    vw.set_backend("jnp")
-    try:
-        gj = jax.grad(loss)(x)
-    finally:
-        vw.set_backend("auto")
-    scale = float(jnp.max(jnp.abs(gj)))
-    np.testing.assert_allclose(np.asarray(gk), np.asarray(gj),
-                               atol=5e-6 * scale)
+    g = jax.grad(loss)(x)
+    assert bool(jnp.all(jnp.isfinite(g)))
+    eps = 1e-6
+    for i in (11, 700, 2000):
+        fd = (loss(x.at[i].add(eps)) - loss(x.at[i].add(-eps))) / (2 * eps)
+        assert abs(float(g[i]) - float(fd)) < 1e-5 * max(1.0, abs(float(fd)))
 
 
 def test_median_magnitude_matches_jnp_median_bitexact():
@@ -206,23 +168,19 @@ def test_median_magnitude_matches_jnp_median_bitexact():
 
 
 def test_sure_method_keeps_materializing_path():
-    """SURE needs the detail planes; the router must not intercept it."""
+    """SURE needs the detail planes and runs through the same cascade."""
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.standard_normal(2048), jnp.float32)
-    vw.set_backend("pallas")
-    try:
-        out = vw.denoise_multilevel(x, "db4", levels=3, method="sure",
-                                    mode="soft")
-    finally:
-        vw.set_backend("auto")
+    out = vw.denoise_multilevel(x, "db4", levels=3, method="sure",
+                                mode="soft")
     assert out.shape == x.shape and bool(jnp.all(jnp.isfinite(out)))
 
 
 @pytest.mark.slow
 def test_fused_denoise_property_sweep_across_families():
-    """Fused-vs-3-call parity across a spread of the registry (orthogonal,
-    least-asymmetric, coiflet, biorthogonal, long filters) x modes x
-    boundaries, interpret mode."""
+    """float32-vs-float64 parity across a spread of the registry
+    (orthogonal, least-asymmetric, coiflet, biorthogonal, long filters) x
+    modes x boundaries."""
     rng = np.random.default_rng(9)
     cases = [
         ("db2", "periodic", "soft"), ("db8", "zero", "hard"),
@@ -233,22 +191,9 @@ def test_fused_denoise_property_sweep_across_families():
     for name, boundary, mode in cases:
         n, levels = 4096, 3
         x = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
-        res = vw.modwt_multilevel(x, name, levels=levels, boundary=boundary,
-                                  backend="jnp")
-        ths = _thresholds(res, n, levels)
-        got = fused_denoise_multilevel(
-            x, name, levels=levels, thresholds=ths, boundary=boundary,
-            mode=mode, interpret=True, precision="float32",
-        )
-        assert got is not None, name
-        nd = tuple(
-            apply_threshold(d, ths[..., j:j + 1], mode)
-            for j, d in enumerate(res.details)
-        )
-        ref = vw.imodwt_multilevel(
-            MultiLevelMODWTResult(nd, res.approx), name, boundary=boundary,
-            backend="jnp",
-        )
+        got = vw.denoise_multilevel(x, name, levels=levels,
+                                    boundary=boundary, mode=mode)
+        ref = _oracle(x, name, levels, boundary, mode)
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(ref), atol=2e-5,
             err_msg=f"{name} {boundary} {mode}",

@@ -217,13 +217,13 @@ def test_communication_report():
     rep = communication_report(mesh, "db4", levels=3, n=4096, batch=4)
     # db4: L0=8 -> halos 7, 14, 28
     assert rep.per_level_halo_samples == (7, 14, 28)
-    assert rep.dcn_bytes_per_host == 0
-    assert rep.ici_bytes_per_chip == (7 + 14 + 28) * 2 * 4  # local_batch=2, f32
-    assert 0 < rep.ici_fraction_of_compute_bytes < 1
+    assert rep.host_bytes_per_host == 0
+    assert rep.halo_bytes_per_chip == (7 + 14 + 28) * 2 * 4  # local_batch=2, f32
+    assert 0 < rep.halo_fraction_of_compute_bytes < 1
     two_sided = communication_report(
         mesh, "db4", levels=3, n=4096, batch=4, direction="inverse_symmetric"
     )
-    assert two_sided.ici_bytes_per_chip == 2 * rep.ici_bytes_per_chip
+    assert two_sided.halo_bytes_per_chip == 2 * rep.halo_bytes_per_chip
 
 
 def test_graft_entry_dryrun():
@@ -353,72 +353,57 @@ def test_sharded_batch_sparse_solvers():
 
 
 # ---------------------------------------------------------------------------
-# Kernel-backed tiled path: shard-local compute through the composite MXU
-# kernel (edge='external'), parity vs the single-device fused kernel at the
-# same precision.  Interpreter mode on the CPU mesh; compiled on TPU.
+# Tiled path at float64 against the single-device transform, and the
+# backend option that is left ('auto' == 'jnp'; the kernel tier is gone).
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("boundary", ["periodic", "zero"])
 def test_tiled_pallas_matches_fused_kernel(signal_mesh, boundary):
-    from vectorwave_tpu.kernels.modwt_pallas import fused_analysis, fused_synthesis
-
-    x = jnp.asarray(composite_sin(2048, noise_std=0.3), dtype=jnp.float32)
+    """Tiled analysis/synthesis == the single-device transform (float64)."""
+    x = jnp.asarray(composite_sin(2048, noise_std=0.3), dtype=jnp.float64)
     tiled = modwt_multilevel_tiled(
         x, "db4", levels=3, mesh=signal_mesh, boundary=boundary,
-        backend="pallas", precision="float32",
     )
-    d_ref, a_ref = fused_analysis(
-        x, "db4", levels=3, boundary=boundary, interpret=True,
-        precision="float32",
-    )
-    for a, b in zip(tiled.details + (tiled.approx,), d_ref + (a_ref,)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
+    ref = vw.modwt_multilevel(x, "db4", levels=3, boundary=boundary)
+    for a, b in zip(tiled.details + (tiled.approx,), ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-12)
     xr = imodwt_multilevel_tiled(
         tiled, "db4", mesh=signal_mesh, boundary=boundary,
-        backend="pallas", precision="float32",
     )
-    xr_ref = fused_synthesis(
-        d_ref, a_ref, "db4", boundary=boundary, interpret=True,
-        precision="float32",
-    )
-    np.testing.assert_allclose(np.asarray(xr), np.asarray(xr_ref), atol=1e-6)
+    xr_ref = vw.imodwt_multilevel(ref, "db4", boundary=boundary)
+    np.testing.assert_allclose(np.asarray(xr), np.asarray(xr_ref), atol=1e-12)
     if boundary == "periodic":
-        np.testing.assert_allclose(np.asarray(xr), np.asarray(x), atol=1e-5)
+        np.testing.assert_allclose(np.asarray(xr), np.asarray(x), atol=1e-12)
 
 
 def test_tiled_pallas_deep_halo_and_batch(mesh_2d):
     """Cumulative halo wider than a shard (multi-hop ppermute) + a batched
-    2-D mesh with distinct dec/rec filters (bior)."""
-    from vectorwave_tpu.kernels.modwt_pallas import fused_analysis
-
+    2-D mesh."""
     rng = np.random.default_rng(5)
     xb = jnp.asarray(rng.standard_normal((4, 512)), dtype=jnp.float32)
     # span = (16-1)(2^4-1) = 225 > 512/4 = 128 samples/shard -> 2 hops
     tiled = modwt_multilevel_tiled(
         xb, "db8", levels=4, mesh=mesh_2d, axis="signal", batch_axis="data",
-        backend="pallas", precision="float32",
     )
-    d_ref, a_ref = fused_analysis(
-        xb, "db8", levels=4, interpret=True, precision="float32"
-    )
-    for a, b in zip(tiled.details + (tiled.approx,), d_ref + (a_ref,)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
+    ref = vw.modwt_multilevel(xb, "db8", levels=4)
+    for a, b in zip(tiled.details + (tiled.approx,), ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
     xr = imodwt_multilevel_tiled(
         tiled, "db8", mesh=mesh_2d, axis="signal", batch_axis="data",
-        backend="pallas", precision="float32",
     )
     np.testing.assert_allclose(np.asarray(xr), np.asarray(xb), atol=1e-5)
 
 
 def test_tiled_backend_validation(signal_mesh):
     x = jnp.zeros(1024, dtype=jnp.float32)
+    for backend in ("cuda", "pallas"):
+        with pytest.raises(vw.InvalidArgumentError):
+            modwt_multilevel_tiled(
+                x, "db4", levels=2, mesh=signal_mesh, backend=backend
+            )
+    res = modwt_multilevel_tiled(x, "db4", levels=2, mesh=signal_mesh,
+                                 backend="jnp")
     with pytest.raises(vw.InvalidArgumentError):
-        modwt_multilevel_tiled(
-            x, "db4", levels=2, mesh=signal_mesh, backend="cuda"
-        )
-    with pytest.raises(vw.InvalidArgumentError):
-        modwt_multilevel_tiled(
-            x, "db4", levels=2, mesh=signal_mesh, boundary="symmetric",
-            backend="pallas",
-        )
+        imodwt_multilevel_tiled(res, "db4", mesh=signal_mesh,
+                                backend="pallas")

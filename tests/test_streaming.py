@@ -161,19 +161,16 @@ def test_streaming_transform_class():
 
 
 def test_streaming_denoiser_state_restore_validates_backend():
-    """A checkpoint written under one resolved backend must not silently
-    restore onto an instance resolved to the other layout (ADVICE r04):
-    the .state setter validates the pytree type and names the fix."""
+    """A state of another layout must not silently restore onto the
+    denoiser: the .state setter validates the pytree type and names the
+    fix."""
     from vectorwave_tpu.streaming import StreamingDenoiser
-    from vectorwave_tpu.streaming.denoiser_stream import (
-        kernel_streaming_denoiser_init,
-    )
 
     d = StreamingDenoiser("db4", backend="jnp")
     assert d.backend == "jnp"
     good = d.state
-    kernel_state = kernel_streaming_denoiser_init(d.wavelet, levels=d.levels)
+    transform_state = streaming_init(d.wavelet, d.levels)
     with pytest.raises(vw.InvalidArgumentError, match="resolved backend"):
-        d.state = kernel_state
+        d.state = transform_state
     d.state = good  # same-layout restore still works
     d.denoise(np.zeros(256, np.float32))

@@ -1,10 +1,9 @@
-"""Kernel-tier block streaming: the composite MXU kernel fed by the carry
-as its external halo (streaming/stream.modwt_stream_block_kernel).
+"""Block streaming in float32 over batched rows and production-like block
+sizes (streaming/stream.modwt_stream_block).
 
-Parity oracle: the whole-signal transform (zero/symmetric) — the same
-left-history contract as the jnp tier (reference:
-BatchSIMDMODWT.java:447-508 serving BatchStreamingMODWT.java:19-458).
-Runs in interpret mode on CPU; f32 tolerances.
+Parity oracle: the whole-signal transform (zero/symmetric) — the
+left-history contract (reference: BatchStreamingMODWT.java:19-458).
+f32 tolerances.
 """
 
 import jax
@@ -15,20 +14,18 @@ import pytest
 import vectorwave_tpu as vw
 from vectorwave_tpu.streaming import (
     StreamingTransform,
-    kernel_streaming_init,
-    modwt_stream_block_kernel,
+    modwt_stream_block,
+    streaming_init,
 )
 
 
 def _stream(x, name, levels, boundary, block_size, batch_shape=()):
-    state = kernel_streaming_init(name, levels, batch_shape=batch_shape)
+    state = streaming_init(name, levels, batch_shape=batch_shape)
     outs = []
     n = x.shape[-1]
     for start in range(0, n, block_size):
-        state, res = modwt_stream_block_kernel(
-            state, x[..., start : start + block_size], name,
-            levels=levels, boundary=boundary, interpret=True,
-            precision="float32",
+        state, res = modwt_stream_block(
+            state, x[..., start : start + block_size], name, boundary=boundary,
         )
         outs.append(res)
     details = tuple(
@@ -58,8 +55,8 @@ def test_kernel_streaming_matches_whole_signal_zero(name, levels, block_size):
 
 
 def test_kernel_streaming_matches_whole_signal_symmetric():
-    """First block head spliced from the exact symmetric cascade; later
-    blocks are pure external-halo kernel calls."""
+    """The first block mirrors its head into the history; later blocks
+    read the carried tails."""
     rng = np.random.default_rng(1)
     levels, name = 3, "db4"
     x = jnp.asarray(rng.standard_normal(4096), jnp.float32)
@@ -75,25 +72,20 @@ def test_kernel_streaming_matches_whole_signal_symmetric():
     )
 
 
-def test_kernel_streaming_symmetric_short_block_raises():
-    state = kernel_streaming_init("db4", 4)
-    with pytest.raises(Exception, match="blocks >="):
-        modwt_stream_block_kernel(
-            state, jnp.zeros(64, jnp.float32), "db4", levels=4,
-            boundary="symmetric", interpret=True,
+def test_kernel_streaming_unknown_boundary_raises():
+    state = streaming_init("db4", 2)
+    with pytest.raises(vw.InvalidArgumentError, match="Unsupported"):
+        modwt_stream_block(
+            state, jnp.zeros(64, jnp.float32), "db4", boundary="reflect",
         )
 
 
 def test_kernel_streaming_periodic_is_per_block():
-    """Periodic treats each block circularly (stateless), matching the jnp
-    tier's semantics."""
+    """Periodic treats each block circularly (stateless)."""
     rng = np.random.default_rng(2)
     x = jnp.asarray(rng.standard_normal((1, 1024)), jnp.float32)
-    state = kernel_streaming_init("db4", 2, batch_shape=(1,))
-    _, res = modwt_stream_block_kernel(
-        state, x, "db4", levels=2, boundary="periodic", interpret=True,
-        precision="float32",
-    )
+    state = streaming_init("db4", 2, batch_shape=(1,))
+    _, res = modwt_stream_block(state, x, "db4", boundary="periodic")
     whole = vw.modwt_multilevel(x, "db4", levels=2, boundary="periodic",
                                 backend="jnp")
     np.testing.assert_allclose(
@@ -108,13 +100,10 @@ def test_kernel_streaming_scan_compatible():
     blocks = jnp.asarray(
         rng.standard_normal((4, 2, 1024)), jnp.float32
     )  # [n_blocks, B, block]
-    state = kernel_streaming_init("db4", levels, batch_shape=(2,))
+    state = streaming_init("db4", levels, batch_shape=(2,))
 
     def step(st, blk):
-        st, res = modwt_stream_block_kernel(
-            st, blk, "db4", levels=levels, boundary="zero", interpret=True,
-            precision="float32",
-        )
+        st, res = modwt_stream_block(st, blk, "db4", boundary="zero")
         return st, res.approx
 
     _, approxes = jax.lax.scan(step, state, blocks)
@@ -129,12 +118,13 @@ def test_kernel_streaming_scan_compatible():
 
 
 def test_streaming_transform_kernel_backend_facade():
-    """StreamingTransform(backend='pallas') routes through the kernel tier
-    and still matches the whole-signal transform."""
+    """StreamingTransform rejects the removed 'pallas' backend; its default
+    path matches the whole-signal transform."""
+    with pytest.raises(vw.InvalidArgumentError):
+        StreamingTransform("db4", levels=2, boundary="zero", backend="pallas")
     rng = np.random.default_rng(4)
     x = jnp.asarray(rng.standard_normal(2048), jnp.float32)
-    st = StreamingTransform("db4", levels=2, boundary="zero",
-                            backend="pallas")
+    st = StreamingTransform("db4", levels=2, boundary="zero", backend="jnp")
     outs = [st.process(x[s : s + 512]) for s in range(0, 2048, 512)]
     whole = vw.modwt_multilevel(x, "db4", levels=2, boundary="zero",
                                 backend="jnp")

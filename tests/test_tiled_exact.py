@@ -1,9 +1,8 @@
-"""Sharded EXACT (<=1e-10) tier: the double-float kernels run shard-locally
-with ring halo exchange (parallel/tiled.modwt_multilevel_tiled_exact).
+"""Sharded exact (<=1e-10) tier: the tiled transform on float64 input.
 
-Oracle: the f64 jnp transform on the unsharded signal — the sharded exact
-round trip must stay at the double-float representation floor, matching the
-single-chip exact tier's contract (BASELINE.json parity gate).
+The exact tier is the float64 cascade; sharding it over the signal axis
+with ring halo exchange must keep the single-device parity contract.
+Oracle: the f64 transform on the unsharded signal.
 """
 
 import numpy as np
@@ -12,9 +11,9 @@ import pytest
 
 import vectorwave_tpu as vw
 from vectorwave_tpu.parallel import (
-    imodwt_multilevel_tiled_exact,
+    imodwt_multilevel_tiled,
     make_mesh,
-    modwt_multilevel_tiled_exact,
+    modwt_multilevel_tiled,
 )
 
 
@@ -23,105 +22,56 @@ def signal_mesh():
     return make_mesh({"signal": 8})
 
 
+def _x64(n, seed):
+    x32 = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    return jnp.asarray(x32.astype(np.float64))
+
+
 def test_tiled_exact_roundtrip_below_1e10(signal_mesh):
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal(8192), jnp.float32)
-    details, approx = modwt_multilevel_tiled_exact(
-        x, "db4", levels=4, mesh=signal_mesh, interpret=True,
-    )
-    hi, lo = imodwt_multilevel_tiled_exact(
-        details, approx, "db4", mesh=signal_mesh, interpret=True,
-    )
-    err = (
-        np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-        - np.asarray(x, np.float64)
-    )
+    x = _x64(8192, 0)
+    res = modwt_multilevel_tiled(x, "db4", levels=4, mesh=signal_mesh)
+    assert res.approx.dtype == jnp.float64
+    xr = imodwt_multilevel_tiled(res, "db4", mesh=signal_mesh)
+    err = np.asarray(xr) - np.asarray(x)
     rmse = float(np.sqrt(np.mean(err**2)))
     assert rmse <= 1e-10, rmse
 
 
 def test_tiled_exact_matches_f64_oracle(signal_mesh):
-    """Sharded exact analysis == f64 jnp planes to ~1e-12."""
-    rng = np.random.default_rng(1)
-    x32 = jnp.asarray(rng.standard_normal(4096), jnp.float32)
-    details, approx = modwt_multilevel_tiled_exact(
-        x32, "sym8", levels=3, mesh=signal_mesh, interpret=True,
-    )
-    x64 = jnp.asarray(np.asarray(x32, np.float64))
-    ref = vw.modwt_multilevel(x64, "sym8", levels=3, boundary="periodic",
-                              backend="jnp")
-    for (h, l), want in zip(
-        tuple(details) + (approx,), ref.details + (ref.approx,)
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        np.testing.assert_allclose(got, np.asarray(want), atol=1e-11)
+    """Sharded float64 analysis == single-device f64 planes to ~1e-13."""
+    x = _x64(4096, 1)
+    tiled = modwt_multilevel_tiled(x, "sym8", levels=3, mesh=signal_mesh)
+    ref = vw.modwt_multilevel(x, "sym8", levels=3, boundary="periodic")
+    for got, want in zip(tiled.details + (tiled.approx,),
+                         ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-13)
 
 
 def test_tiled_exact_zero_boundary(signal_mesh):
-    rng = np.random.default_rng(2)
-    x32 = jnp.asarray(rng.standard_normal(4096), jnp.float32)
-    details, approx = modwt_multilevel_tiled_exact(
-        x32, "db4", levels=3, mesh=signal_mesh, boundary="zero",
-        interpret=True,
-    )
-    x64 = jnp.asarray(np.asarray(x32, np.float64))
-    ref = vw.modwt_multilevel(x64, "db4", levels=3, boundary="zero",
-                              backend="jnp")
-    for (h, l), want in zip(
-        tuple(details) + (approx,), ref.details + (ref.approx,)
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        np.testing.assert_allclose(got, np.asarray(want), atol=1e-11)
+    x = _x64(4096, 2)
+    tiled = modwt_multilevel_tiled(x, "db4", levels=3, mesh=signal_mesh,
+                                   boundary="zero")
+    ref = vw.modwt_multilevel(x, "db4", levels=3, boundary="zero")
+    for got, want in zip(tiled.details + (tiled.approx,),
+                         ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-13)
 
 
 def test_tiled_exact_multi_wrap_periodic(signal_mesh):
-    """Composite span >= global length: the periodic extension wraps more
-    than once, which a single halo slab cannot express — the tier must
-    take the all_gather path and still match the f64 oracle (a truncated
-    halo silently diverges here; ADVICE r04)."""
-    from vectorwave_tpu.kernels.modwt_mxu import _composite_halo_rows
-
+    """Cumulative span >= the whole signal: the periodic extension wraps
+    more than once across the ring, and the hop chain must still match
+    the f64 oracle and round-trip below 1e-10."""
     levels = 6
-    n = 1024  # db8 span = _composite_halo_rows(16, 6)*128 = 1024 >= n
-    assert _composite_halo_rows(16, levels) * 128 >= n
-    rng = np.random.default_rng(4)
-    x32 = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    details, approx = modwt_multilevel_tiled_exact(
-        x32, "db8", levels=levels, mesh=signal_mesh, interpret=True,
-    )
-    x64 = jnp.asarray(np.asarray(x32, np.float64))
-    ref = vw.modwt_multilevel(x64, "db8", levels=levels,
-                              boundary="periodic", backend="jnp")
-    for (h, l), want in zip(
-        tuple(details) + (approx,), ref.details + (ref.approx,)
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        # balanced-profile keep-truncation floor is ~1.5e-11 worst-case
-        # per coefficient (KEEP=5); the tier contract is <=1e-10
-        np.testing.assert_allclose(got, np.asarray(want), atol=5e-11)
-    hi, lo = imodwt_multilevel_tiled_exact(
-        details, approx, "db8", mesh=signal_mesh, interpret=True,
-    )
-    err = (
-        np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
-        - np.asarray(x32, np.float64)
-    )
+    n = 1024  # db8 span = 15 * 63 = 945 samples > 128 per shard
+    x = _x64(n, 4)
+    tiled = modwt_multilevel_tiled(x, "db8", levels=levels, mesh=signal_mesh)
+    ref = vw.modwt_multilevel(x, "db8", levels=levels, boundary="periodic")
+    for got, want in zip(tiled.details + (tiled.approx,),
+                         ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=1e-12)
+    xr = imodwt_multilevel_tiled(tiled, "db8", mesh=signal_mesh)
+    err = np.asarray(xr) - np.asarray(x)
     assert float(np.sqrt(np.mean(err**2))) <= 1e-10
-
-
-def test_exact_symmetric_analysis_matches_f64():
-    """Per-level mirrored exact cascade == f64 jnp symmetric analysis."""
-    rng = np.random.default_rng(3)
-    x32 = jnp.asarray(rng.standard_normal((2, 2048)), jnp.float32)
-    details, approx = vw.modwt_multilevel_exact(
-        x32, "db4", levels=3, boundary="symmetric", interpret=True,
-    )
-    x64 = jnp.asarray(np.asarray(x32, np.float64))
-    ref = vw.modwt_multilevel(x64, "db4", levels=3, boundary="symmetric",
-                              backend="jnp")
-    for (h, l), want in zip(
-        tuple(details) + (approx,), ref.details + (ref.approx,)
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        # balanced default profile: <=1e-10 contract, ~1e-11 worst-case
-        np.testing.assert_allclose(got, np.asarray(want), atol=5e-11)

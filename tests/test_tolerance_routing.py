@@ -1,4 +1,4 @@
-"""Tolerance-driven precision routing on the default API (VERDICT r04 #3).
+"""Tolerance-driven precision routing on the default API.
 
 The reference's public API is f64 end-to-end and its default round trip
 meets <1e-9 max error (ModwtPeriodicRoundTripTest.java:37); ours makes that
@@ -14,9 +14,11 @@ import vectorwave_tpu as vw
 
 
 def test_resolve_tolerance_ladder():
-    assert vw.resolve_tolerance(0.5) == "bf16"
-    assert vw.resolve_tolerance(1e-3) == "bf16_3x"
+    assert vw.resolve_tolerance(0.5) == "float32"
+    assert vw.resolve_tolerance(1e-3) == "float32"
+    assert vw.resolve_tolerance(3e-6) == "float32"
     assert vw.resolve_tolerance(1e-5) == "float32"
+    assert vw.resolve_tolerance(2.9e-6) == "exact"
     assert vw.resolve_tolerance(1e-10) == "exact"
     with pytest.raises(vw.InvalidArgumentError):
         vw.resolve_tolerance(0.0)
@@ -27,21 +29,15 @@ def test_tolerance_1e10_roundtrip_meets_contract():
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((2, 4096)), jnp.float32)
     res = vw.modwt_multilevel(x, "db4", levels=5, tolerance=1e-10)
-    assert isinstance(res, vw.ExactMODWTResult)
-    # coefficient parity vs the f64 oracle (combine hi+lo on host)
+    assert isinstance(res, vw.MultiLevelMODWTResult)
+    assert res.approx.dtype == jnp.float64
+    # coefficient parity vs the f64 oracle
     x64 = jnp.asarray(np.asarray(x, np.float64))
     ref = vw.modwt_multilevel(x64, "db4", levels=5, backend="jnp")
-    for h, l, want in zip(
-        res.details + (res.approx,),
-        res.details_lo + (res.approx_lo,),
-        ref.details + (ref.approx,),
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        # balanced-profile keep-truncation floor ~2e-11 worst per
-        # coefficient; tolerance<=1e-11 escalates to the full profile
-        np.testing.assert_allclose(got, np.asarray(want), atol=5e-11)
+    for got, want in zip(res.details + (res.approx,), ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-14)
     xr = vw.imodwt_multilevel(res, "db4")
-    assert xr.dtype == jnp.float32
+    assert xr.dtype == jnp.float64
     err = np.asarray(xr, np.float64) - np.asarray(x, np.float64)
     assert float(np.sqrt(np.mean(err**2))) <= 1e-10
 
@@ -50,11 +46,12 @@ def test_precision_kwarg_explicit():
     rng = np.random.default_rng(1)
     x = jnp.asarray(rng.standard_normal(4096), jnp.float32)
     res = vw.modwt_multilevel(x, "sym8", levels=3, precision="exact")
-    assert isinstance(res, vw.ExactMODWTResult)
+    assert res.approx.dtype == jnp.float64
     res32 = vw.modwt_multilevel(x, "sym8", levels=3, precision="float32")
-    assert isinstance(res32, vw.MultiLevelMODWTResult)
-    with pytest.raises(vw.InvalidArgumentError):
-        vw.modwt_multilevel(x, "sym8", levels=3, precision="fp8")
+    assert res32.approx.dtype == jnp.float32
+    for removed in ("fp8", "bf16", "bf16_3x"):
+        with pytest.raises(vw.InvalidArgumentError):
+            vw.modwt_multilevel(x, "sym8", levels=3, precision=removed)
 
 
 def test_exact_tier_batched_leading_dims():
@@ -71,7 +68,7 @@ def test_plain_result_with_exact_tolerance_raises():
     """Planes already rounded to f32 — the inverse cannot un-round them."""
     x = jnp.zeros((2, 4096), jnp.float32)
     res = vw.modwt_multilevel(x, "db4", levels=3)
-    with pytest.raises(vw.InvalidArgumentError, match="ExactMODWTResult"):
+    with pytest.raises(vw.InvalidArgumentError, match="float64 planes"):
         vw.imodwt_multilevel(res, "db4", tolerance=1e-10)
 
 
@@ -81,9 +78,10 @@ def test_exact_result_symmetric_inverse_raises():
     x = jnp.zeros((2, 2048), jnp.float32)
     res = vw.modwt_multilevel(x, "db4", levels=3, precision="exact",
                               boundary="symmetric")
-    assert isinstance(res, vw.ExactMODWTResult)
+    assert res.approx.dtype == jnp.float64
     with pytest.raises(vw.InvalidArgumentError, match="symmetric"):
-        vw.imodwt_multilevel(res, "db4", boundary="symmetric")
+        vw.imodwt_multilevel(res, "db4", boundary="symmetric",
+                             precision="exact")
 
 
 def test_f64_input_short_circuits_exact_tier():
@@ -110,20 +108,18 @@ def test_denoise_tolerance_clamps_to_f32_floor():
 
 
 def test_tolerance_below_1e11_escalates_to_full_profile():
-    """tolerance<=1e-11 runs the full (~1e-13) slice geometry — the
-    coefficient parity then sits at the double-float floor."""
+    """tolerance<=1e-11 is served by the same float64 cascade — the
+    coefficient parity sits at the float64 floor."""
     rng = np.random.default_rng(5)
     x = jnp.asarray(rng.standard_normal((2, 2048)), jnp.float32)
     res = vw.modwt_multilevel(x, "db4", levels=4, tolerance=1e-12)
     x64 = jnp.asarray(np.asarray(x, np.float64))
     ref = vw.modwt_multilevel(x64, "db4", levels=4, backend="jnp")
-    for h, l, want in zip(
-        res.details + (res.approx,),
-        res.details_lo + (res.approx_lo,),
-        ref.details + (ref.approx,),
-    ):
-        got = np.asarray(h, np.float64) + np.asarray(l, np.float64)
-        np.testing.assert_allclose(got, np.asarray(want), atol=2e-12)
+    for got, want in zip(res.details + (res.approx,), ref.details + (ref.approx,)):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-12)
+    xr = vw.imodwt_multilevel(res, "db4", tolerance=1e-12)
+    err = np.asarray(xr, np.float64) - np.asarray(x, np.float64)
+    assert float(np.max(np.abs(err))) <= 1e-12
 
 
 def test_denoise_explicit_exact_precision_raises():

@@ -2,7 +2,7 @@
 
 Module-level jit caches keyed by (shape, dtype, config) grow without bound
 in a long-lived serving process that sees many distinct shapes — each entry
-pins a compiled XLA program plus its closure (ADVICE r04).  This tiny dict
+pins a compiled XLA program plus its closure.  This tiny dict
 subclass evicts oldest-first at a fixed capacity; XLA's own executable
 cache policy then governs the real memory.
 """

@@ -1,13 +1,13 @@
 """Global configuration.
 
-TPU-native re-design of the reference's configuration surface
+Re-design of the reference's configuration surface
 (``wavelet/config/TransformConfig.java:54-222`` builder and the
 ``vectorwave.*`` system properties, docs/CONFIGURATION.md): a small dataclass
-plus module-level knobs.  The reference's ``forceScalar``/``forceVector``
-flags map to the kernel-backend selection here (``jnp`` = portable XLA path,
-``pallas`` = fused TPU kernels); the FFT heuristics knobs map to the CWT
-engine; the runtime-learning estimator is replaced by a static cost model
-(XLA compiles; there is nothing to learn at runtime) — see ``cost_model``.
+plus module-level knobs.  The reference's ``forceScalar`` flag maps to
+``backend='jnp'``, which is the same XLA path as ``'auto'``; the FFT heuristics
+knobs map to the CWT engine; the runtime-learning estimator is replaced by a
+static cost model (XLA compiles; there is nothing to learn at runtime) — see
+``cost_model``.
 """
 
 from __future__ import annotations
@@ -15,22 +15,14 @@ from __future__ import annotations
 import dataclasses
 import os
 
-_VALID_BACKENDS = ("auto", "jnp", "pallas")
+_VALID_BACKENDS = ("auto", "jnp")
 
-_backend = os.environ.get("VECTORWAVE_TPU_BACKEND", "auto")
-
-#: matmul emulation depth of the fused MXU kernels (kernels/modwt_mxu.py):
-#: "float32" ~ f32-exact (6-pass), "bf16_3x" ~ 1e-5 relative (3-pass, 1.7x
-#: faster), "bf16" ~ 3e-3 relative (1-pass, 3x faster; the JAX-on-TPU default
-#: matmul precision).  Measured on chip in tools/perf_final.py.
-_VALID_PRECISIONS = ("float32", "bf16_3x", "bf16")
-
-_fused_precision = os.environ.get("VECTORWAVE_TPU_PRECISION", "bf16_3x")
+_backend = "auto"
 
 
 def set_backend(name: str) -> None:
-    """Select the compute backend: ``auto`` (Pallas on TPU when eligible),
-    ``jnp`` (always the portable path) or ``pallas`` (force fused kernels)."""
+    """Select the compute backend: ``auto`` or ``jnp`` (the same XLA path;
+    the name is kept for configuration files written for older releases)."""
     if name not in _VALID_BACKENDS:
         from .errors import ErrorCode, InvalidConfigurationError
 
@@ -47,76 +39,36 @@ def get_backend() -> str:
     return _backend
 
 
-def set_fused_precision(name: str) -> None:
-    """Select the fused-kernel matmul precision: float32 / bf16_3x / bf16."""
-    if name not in _VALID_PRECISIONS:
-        from .errors import ErrorCode, InvalidConfigurationError
-
-        raise InvalidConfigurationError(
-            ErrorCode.CFG_INVALID_CONFIG,
-            f"Unknown fused precision {name!r}",
-            suggestions=(f"Use one of {_VALID_PRECISIONS}",),
-        )
-    global _fused_precision
-    _fused_precision = name
-
-
-def get_fused_precision() -> str:
-    return _fused_precision
-
-
-#: MAD-sigma estimator used by the fused denoise router (denoise/denoiser.py):
-#: "auto" decimates the level-1 detail to ~1/64 of rows for large signals
-#: (the exact 31-pass bitwise median over full N costs more HBM traffic than
-#: the entire fused denoise kernel), "exact" forces the full-sample median,
-#: "decimated" forces the subsample whenever the shape allows.
-_VALID_SIGMA = ("auto", "exact", "decimated")
-
-_sigma_estimator = os.environ.get("VECTORWAVE_TPU_SIGMA", "auto")
-
-
-def set_sigma_estimator(name: str) -> None:
-    """Select the fused-denoise MAD-sigma estimator: auto/exact/decimated."""
-    if name not in _VALID_SIGMA:
-        from .errors import ErrorCode, InvalidConfigurationError
-
-        raise InvalidConfigurationError(
-            ErrorCode.CFG_INVALID_CONFIG,
-            f"Unknown sigma estimator {name!r}",
-            suggestions=(f"Use one of {_VALID_SIGMA}",),
-        )
-    global _sigma_estimator
-    _sigma_estimator = name
-
-
-def get_sigma_estimator() -> str:
-    return _sigma_estimator
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def cache_root() -> str:
-    """Root directory for on-disk caches (XLA programs, native builds,
-    perf calibration): ``$VECTORWAVE_TPU_CACHE`` or ``~/.cache/vectorwave_tpu``."""
-    return os.environ.get(
-        "VECTORWAVE_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "vectorwave_tpu"),
-    )
+    """Root directory for on-disk caches (native builds, perf calibration):
+    ``$VECTORWAVE_TPU_CACHE`` or ``.cache`` inside the checkout."""
+    return os.environ.get("VECTORWAVE_TPU_CACHE", os.path.join(_CHECKOUT, ".cache"))
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
-    """Persist XLA compilations across processes.
+#: Compile-cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is unset:
+#: one fixed path inside the checkout (listed in ``.gitignore``), so every
+#: process of this repository finds the programs the others compiled.
+DEFAULT_COMPILATION_CACHE_DIR = os.path.join(_CHECKOUT, ".jax_cache")
 
-    On tunneled/remote TPU runtimes a cold compile can take minutes; the
-    persistent cache makes every later process hit it in milliseconds.
-    Call once at startup (bench.py and the examples that run standalone on
-    TPU do).  Returns the cache directory used.
+
+def enable_compilation_cache() -> str:
+    """Persist XLA compilations across processes; returns the directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and this
+    sets no other directory; otherwise the cache goes to
+    :data:`DEFAULT_COMPILATION_CACHE_DIR`.  Call once at startup (the
+    benchmarks, ``chip_smoke.py`` and the test suite do).
     """
     import jax
 
-    if path is None:
-        path = cache_root()
-    path = os.path.join(path, "xla")
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_COMPILATION_CACHE_DIR
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return path
 
@@ -126,7 +78,7 @@ class TransformConfig:
     """Bundle of transform options (reference: TransformConfig builder).
 
     ``boundary``: periodic / zero / symmetric.
-    ``backend``: auto / jnp / pallas (force_scalar <-> backend='jnp').
+    ``backend``: auto / jnp (force_scalar <-> backend='jnp').
     ``max_decomposition_levels``: safety cap (reference default 20; the
     multi-level transform itself caps at 10).
     """

@@ -1,14 +1,16 @@
 """Static cost model + optional on-device calibration.
 
-TPU-native re-design of the reference's runtime-learning subsystem
+Re-design of the reference's runtime-learning subsystem
 (``/root/reference/vectorwave-core/.../wavelet/performance/`` —
 ``AdaptivePerformanceEstimator.java:19-243``, ``PerformanceCalibrator.java``,
-``PerformanceModel``, ``ConfidenceInterval``): on TPU there is nothing to
-"learn" per-call — XLA compiles a fixed program — so the estimator reduces to
-a roofline-style model (bytes moved / sustained bandwidth) whose single free
-parameter, sustained throughput, is measured once by an explicit
-:func:`calibrate` microbenchmark and persisted to the cache directory
-(the analogue of ``~/.vectorwave/performance``, docs/RUNTIME_LEARNING.md).
+``PerformanceModel``, ``ConfidenceInterval``): there is nothing to "learn"
+per call — XLA compiles a fixed program — so the estimator reduces to a
+roofline-style model (work / sustained throughput) whose single free
+parameter, sustained throughput, is measured once per device kind by an
+explicit :func:`calibrate` microbenchmark and persisted to the cache
+directory (the analogue of ``~/.vectorwave/performance``,
+docs/RUNTIME_LEARNING.md).  There are no built-in rates: a device that was
+never calibrated is an error, not a guess.
 """
 
 from __future__ import annotations
@@ -22,17 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-#: conservative default sustained throughputs (samples/sec) per platform for
-#: a 6-level f32 round trip; replaced by calibrate() measurements.  The TPU
-#: default is the measured v5e composite-MXU rate at the default bf16_3x
-#: precision (tools/perf_final.py, dispatch overhead amortized).
-_DEFAULT_THROUGHPUT = {
-    "tpu": 4.1e9,
-    "cpu": 2.0e7,
-    "gpu": 3.0e8,
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class PredictionResult:
     """Estimate + confidence interval (performance/PredictionResult,
@@ -41,13 +32,12 @@ class PredictionResult:
     estimated_seconds: float
     lower_seconds: float
     upper_seconds: float
-    calibrated: bool
 
 
 def _store_path() -> str:
-    root = os.environ.get("VECTORWAVE_TPU_CACHE") or os.path.expanduser(
-        "~/.cache/vectorwave_tpu"
-    )
+    from .config import cache_root
+
+    root = cache_root()
     os.makedirs(root, exist_ok=True)
     return os.path.join(root, "performance.json")
 
@@ -83,20 +73,24 @@ def estimate_processing_time(
     """Predict a multi-level round-trip's wall time.
 
     Model: work scales with batch * N * levels * filter_length; the sustained
-    rate comes from calibration (tight interval) or the platform default
-    (wide interval) — mirroring the reference's confidence-interval API.
+    rate is the one :func:`calibrate` measured on this ``platform:device_kind``
+    (the reference's confidence-interval API around it).  Raises
+    :class:`InvalidStateError` when this device kind was never calibrated.
     """
-    store = _load_store()
-    entry = store.get(_platform_key())
+    key = _platform_key()
+    entry = _load_store().get(key)
+    if not entry:
+        from .errors import ErrorCode, InvalidStateError
+
+        raise InvalidStateError(
+            ErrorCode.STATE_INVALID,
+            f"No calibrated throughput for device {key!r}",
+            suggestions=("Run vectorwave_tpu.cost_model.calibrate() once on "
+                         "this device",),
+        )
     work = batch * signal_length * levels * filter_length / (6 * 8)
-    if entry:
-        rate = entry["samples_per_second"]
-        est = work / rate
-        return PredictionResult(est, est * 0.7, est * 1.5, True)
-    dev = jax.devices()[0]
-    rate = _DEFAULT_THROUGHPUT.get(dev.platform, 1e7)
-    est = work / rate
-    return PredictionResult(est, est * 0.2, est * 5.0, False)
+    est = work / entry["samples_per_second"]
+    return PredictionResult(est, est * 0.7, est * 1.5)
 
 
 def calibrate(

@@ -1,6 +1,6 @@
 """MODWT-based wavelet denoising.
 
-TPU-native re-design of the reference's ``WaveletDenoiser``
+Re-design of the reference's ``WaveletDenoiser``
 (``/root/reference/vectorwave-core/.../wavelet/denoising/WaveletDenoiser.java:44-649``):
 pure functions instead of a builder object, with the on-the-fly
 "DenoisedMultiLevelResult" wrapper replaced by explicit functional editing of
@@ -100,20 +100,12 @@ def denoise_multilevel(
     """Multi-level denoise with level-dependent thresholds
     (``denoiseMultiLevel`` :155-171).
 
-    For sigma-only threshold rules (universal/minimax) on periodic/zero
-    boundaries the whole pipeline runs as ONE fused kernel — the
-    coefficient planes never touch HBM (8 B/sample of traffic instead of
-    68; see tools/probe_write_wall.py for why that matters).  Sigma still
-    comes from the exact MAD of the finest detail via a cheap single-level
-    analysis.  Data-dependent rules (SURE/Bayes) and gradients take the
-    materializing path.
-
-    ``tolerance=``/``precision=`` route the compute tier like
-    :func:`~..transforms.multilevel.modwt_multilevel`.  The output is an
-    f32 signal, so tolerances below the f32 representation floor (~1e-7
-    relative) are served by the float32 tier — the closest achievable on
-    this surface; the true exact (<=1e-10) contract lives on the
-    round-trip/coefficient surfaces, which return double-float planes.
+    Sigma comes from the exact MAD of the finest detail.  ``tolerance=``/
+    ``precision=`` route the compute tier like
+    :func:`~..transforms.multilevel.modwt_multilevel`.  The denoised output
+    is thresholded, so tolerances below the float32 floor (~1e-7 relative)
+    are served by the float32 tier; an explicit ``precision='exact'`` raises
+    rather than silently substituting it.
     """
     from ..transforms.multilevel import _resolve_tier
 
@@ -134,131 +126,12 @@ def denoise_multilevel(
                              "precision='exact')",),
             )
         tier = "float32"  # f32 output floor; see docstring
-    fused = _try_fused_denoise(
-        x, wavelet, levels, method, mode, boundary, precision=tier
-    )
-    if fused is not None:
-        return fused
     res = modwt_multilevel(x, wavelet, levels=levels, boundary=boundary,
                            precision=tier)
     sigma = mad_sigma(res.details[0])  # finest scale estimates the noise floor
     denoised = threshold_coeffs(res, sigma, method=method, mode=mode)
     return imodwt_multilevel(denoised, wavelet, boundary=boundary,
                              precision=tier)
-
-
-def _try_fused_denoise(x, wavelet, levels, method, mode, boundary,
-                       precision=None):
-    """Route sigma-only denoise rules through the one-pass fused kernel
-    (kernels/modwt_mxu.run_denoise_composite); None = take the 3-call path."""
-    from ..ops.thresholds import minimax_threshold, universal_threshold
-    from ..transforms.multilevel import _pallas_eligible, _resolve_backend
-    from ..transforms.modwt import _resolve_discrete
-
-    if method not in ("universal", "minimax") or mode not in ("soft", "hard"):
-        return None
-    w = _resolve_discrete(wavelet)
-    n = x.shape[-1]
-    if levels is None:
-        from ..transforms.multilevel import max_levels
-
-        levels = max_levels(n, w)
-    if levels < 2:
-        return None
-    if not _resolve_backend(
-        None, lambda: _pallas_eligible(x, w, levels, boundary)
-    ):
-        return None
-    from ..kernels.modwt_pallas import fused_denoise_multilevel
-
-    sigma = _fused_sigma(x, w, boundary)  # [..., 1]
-    rule = universal_threshold if method == "universal" else minimax_threshold
-    ths = jnp.concatenate(
-        [
-            jnp.asarray(
-                rule(n, sigma / jnp.sqrt(2.0 ** level)), dtype=jnp.float32
-            )
-            for level in range(1, levels + 1)
-        ],
-        axis=-1,
-    )  # [..., levels]
-    return fused_denoise_multilevel(
-        x, w, levels=levels, thresholds=ths, boundary=boundary, mode=mode,
-        precision=precision,
-    )
-
-
-#: decimated-sigma thresholds: signals shorter than this keep the exact
-#: full-sample median (it is cheap there); longer ones subsample ~1/64 of
-#: 128-lane rows (>= _SIGMA_MIN_ROWS rows) before the exact bitwise median.
-_SIGMA_DECIMATE_MIN_N = 32768
-_SIGMA_MIN_ROWS = 8
-
-
-def _fused_sigma(x, w, boundary):
-    """MAD sigma of the level-1 detail for the fused denoise router.
-
-    The exact path (full single-level analysis + 31-pass bitwise median)
-    costs ~4x the fused denoise kernel's own HBM traffic at 128x64K — the
-    round-3 fused denoise was SLOWER than the unfused round trip because of
-    it.  For large signals (``config.set_sigma_estimator`` = auto/decimated)
-    the MAD is instead taken over the level-1 detail of a strided subsample
-    of 128-lane rows (~1/64 of the data, >= 1024 samples): the detail rows
-    are computed directly with the level-1 band matrices (two [128,128]
-    matmuls on the gathered rows), and the median over the subsample is
-    still the exact bitwise order statistic.  Sampling error of the median
-    at >=1024 samples is ~4% (1.25/sqrt(m)), i.e. a ~4% perturbation of the
-    threshold — far below the threshold rules' own statistical slack.
-    Deterministic: the stride is a pure function of the shape.
-    """
-    import numpy as np
-
-    from ..config import get_sigma_estimator
-    from ..kernels.modwt_mxu import _LANES, _band_single
-    from ..kernels.modwt_pallas import _INV_SQRT2
-
-    est = get_sigma_estimator()
-    n = x.shape[-1]
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, n)
-    r = n // _LANES if n % _LANES == 0 else 0
-    want_decimated = est == "decimated" or (
-        est == "auto" and n >= _SIGMA_DECIMATE_MIN_N
-    )
-    if not want_decimated or r < 4 * _SIGMA_MIN_ROWS:
-        d1 = modwt(x, w, boundary=boundary).detail
-        return mad_sigma(d1)
-    import jax
-
-    n_sub = max(_SIGMA_MIN_ROWS, r // 64)
-    stride = r // n_sub
-    high = np.asarray(w.dec_hi, np.float64) * _INV_SQRT2
-    bands = _band_single(high, sign=-1)  # {e in {-1, 0}: [128, 128]}
-    x3 = x2.reshape(-1, r, _LANES)
-    periodic = boundary.lower().startswith("per")
-    acc = None
-    # rows {i*stride + e} assembled from STRIDED SLICES (+ one wrap row),
-    # never a gather — XLA gathers run the scalar path on TPU and cost more
-    # than the fused denoise kernel itself did in round 3's sigma pass
-    for e, m in sorted(bands.items()):
-        if e == 0:
-            sel = x3[:, :: stride, :][:, :n_sub, :]
-        else:  # e < 0 and |e| < stride: rows (i+1)*stride + e for i >= 0,
-            # prepended with the wrap row (periodic) or zeros (zero pad)
-            body = x3[:, stride + e :: stride, :][:, : n_sub - 1, :]
-            if periodic:
-                first = x3[:, r + e : r + e + 1, :]
-            else:
-                first = jnp.zeros_like(x3[:, :1, :])
-            sel = jnp.concatenate([first, body], axis=1)
-        term = jax.lax.dot_general(
-            sel.astype(jnp.float32), jnp.asarray(m, jnp.float32),
-            (((2,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        acc = term if acc is None else acc + term
-    d1_sub = acc.reshape(-1, n_sub * _LANES)
-    return mad_sigma(d1_sub).reshape(lead + (1,))
 
 
 def denoise_block(

@@ -1,6 +1,6 @@
 """Structured error hierarchy for vectorwave_tpu.
 
-TPU-native re-design of the reference's exception subsystem
+Re-design of the reference's exception subsystem
 (``/root/reference/vectorwave-core/.../wavelet/exception/ErrorCode.java:24-118``,
 ``ErrorContext.java``): structured error codes plus actionable suggestions,
 expressed as idiomatic Python exceptions instead of a builder hierarchy.

@@ -1,6 +1,6 @@
 """Financial wavelet analysis.
 
-TPU-native re-design of the reference's two financial analyzers:
+Re-design of the reference's two financial analyzers:
 
 * ``financial/FinancialWaveletAnalyzer.java:36-228`` — Sharpe ratio and
   wavelet-denoised Sharpe; ``financial/FinancialAnalyzer.java`` — crash

@@ -1,6 +1,6 @@
 """O(1)-per-tick incremental financial metrics.
 
-TPU-native re-design of the reference's streaming analyzers
+Re-design of the reference's streaming analyzers
 (``/root/reference/vectorwave-core/.../wavelet/cwt/finance/IncrementalFinancialAnalyzer.java``
 and ``SimpleStreamingAnalyzer.java``): instead of a mutable object updated per
 tick, the state is an explicit NamedTuple carry and the update is a pure

@@ -1,6 +1,6 @@
 """Native host runtime: lock-free sample ingest for the streaming pipeline.
 
-The compute path of vectorwave_tpu is jax/XLA/Pallas; the *host runtime*
+The compute path of vectorwave_tpu is jax/XLA; the *host runtime*
 around it — getting real-time samples from producer threads into
 device-ready batches — is plain CPU work where the JVM reference uses native
 threads and ``Flow.Publisher`` plumbing

@@ -9,7 +9,7 @@
 // that pipeline is native C++ so a producer thread can feed samples at
 // sub-microsecond cost while the consumer assembles device-ready overlapping
 // frames ([n_frames, frame_len] batches) for the jitted sliding-window MODWT
-// (streaming/sliding.py).  The TPU never sees this code - it is pure host
+// (streaming/sliding.py).  The accelerator never sees this code - it is pure host
 // runtime, which is exactly where native code belongs in a JAX framework.
 //
 // Design:

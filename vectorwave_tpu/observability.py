@@ -1,11 +1,11 @@
 """Logging, metrics and profiling hooks.
 
-TPU-native re-design of the reference's observability tier
+Re-design of the reference's observability tier
 (``util/Logging.java`` System.Logger wrapper + ``-Dvectorwave.log.level``;
 streaming LongAdder statistics ``MODWTStreamingTransformImpl.java:66-70``;
 ``ParallelConfig.ExecutionStats``): standard :mod:`logging` with an env-var
 level, a tiny thread-safe counter registry, and a ``jax.profiler`` trace
-context for real TPU profiling (the analogue of the JMH module's offline
+context for device profiling (the analogue of the JMH module's offline
 profiling role).
 """
 
@@ -14,6 +14,8 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import subprocess
+import tempfile
 import threading
 import time
 
@@ -63,12 +65,30 @@ def throughput_meter(name: str, samples: int):
 
 
 @contextlib.contextmanager
-def profiler_trace(log_dir: str = "/tmp/vectorwave_tpu_trace"):
-    """Capture a jax.profiler trace around a block (TensorBoard-viewable)."""
+def profiler_trace(log_dir: str | None = None):
+    """Capture a jax.profiler trace around a block (TensorBoard-viewable);
+    by default into ``vectorwave_tpu_trace`` under the temp directory."""
     import jax
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "vectorwave_tpu_trace")
 
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
     finally:
         jax.profiler.stop_trace()
+
+
+def card_description() -> str:
+    """``name, power.limit`` of every NVIDIA card, from ``nvidia-smi`` in a
+    child process (never JAX, so it cannot take a card's memory); cards are
+    joined with ``"; "``.  Printed beside every device time, because a card
+    set below its power limit runs slower under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return "; ".join(
+        line.strip() for line in out.stdout.splitlines() if line.strip()
+    )

@@ -1,13 +1,13 @@
 """Core à trous (MODWT) convolution ops in pure jnp.
 
-TPU-native re-design of the reference scalar kernels
+Re-design of the reference scalar kernels
 (``/root/reference/vectorwave-core/.../wavelet/internal/ScalarOps.java:640-916``).
 The reference's hot loop is ``W_t = sum_l h_l * X_{(t - 2^(j-1) l) mod N}``
 (Percival & Walden eq. 5.4, ``ScalarOps.java:700-723`` and the level-strided
 variant ``:742-780``).  Here that loop becomes a sum of circularly-rolled
 arrays — a static unroll over the (small) base filter with stride baked in, so
-XLA fuses the whole convolution into one vectorized HBM pass; a Pallas kernel
-(``vectorwave_tpu.kernels``) provides the fused multi-level fast path.
+XLA can fuse the whole convolution into one vectorized pass over device
+memory.
 
 Boundary semantics (bit-parity with the reference):
 
@@ -16,7 +16,7 @@ Boundary semantics (bit-parity with the reference):
   (``zeroPaddingConvolveMODWT`` :790-808).
 * ``symmetric`` — half-point symmetric extension, period 2N
   (``symmetricConvolveMODWT`` :818-835 + ``MathUtils.symmetricBoundaryExtension``):
-  implemented exactly as a periodic convolution over ``concat([x, flip(x)])``.
+  implemented as a symmetric pad of the signal read through static slices.
 
 All ops work over the last axis and broadcast over leading batch axes.
 The generalized index is ``idx = t + sign*spacing*l + offset`` which covers
@@ -71,12 +71,9 @@ def _deltas(n_taps: int, spacing: int, sign: int, offset: int) -> list[int]:
 def device_complex(arr, complex_dtype) -> jnp.ndarray:
     """Host complex constant -> device array, without any complex transfer.
 
-    Some remote TPU runtimes cannot move complex buffers between host and
-    device at all ("UNIMPLEMENTED"), and in eager mode even ``re + 1j*im``
-    fails because the scalar ``1j`` is itself a complex constant that must be
-    shipped. ``lax.complex`` assembles the value on device from two real
-    transfers, which works everywhere and folds to the same constant under
-    jit.
+    ``lax.complex`` assembles the value on device from two real transfers,
+    so no runtime ever has to move a complex buffer between host and device
+    (some cannot), and it folds to the same constant under jit.
     """
     arr = np.asarray(arr)
     real_dtype = np.float64 if complex_dtype == jnp.complex128 else np.float32
@@ -205,16 +202,19 @@ def atrous_convolve(
     if boundary == "periodic":
         return _roll_sum(x, taps, n)
 
-    if boundary == "symmetric":
-        ext = jnp.concatenate([x, jnp.flip(x, axis=-1)], axis=-1)
-        return _roll_sum(ext, taps, 2 * n)[..., :n]
-
-    # zero padding: pad so every delta lands in-bounds, then static slices
+    # zero / symmetric: pad so every delta lands in-bounds, then static
+    # slices.  Half-point symmetric extension is numpy's "symmetric" pad
+    # mode, which reflects repeatedly when a pad is wider than the signal
+    # (the 2N-periodic extension).  The padded form, not rolls of
+    # [x, flip(x)], keeps XLA's GPU compile time short: a 128x64K 6-level
+    # symmetric round trip built from those rolls did not compile within
+    # ten minutes on an H100.
     deltas = [d for d, _ in taps]
     pad_left = max(0, -min(deltas))
     pad_right = max(0, max(deltas))
     pad_width = [(0, 0)] * (x.ndim - 1) + [(pad_left, pad_right)]
-    padded = jnp.pad(x, pad_width)
+    mode = "symmetric" if boundary == "symmetric" else "constant"
+    padded = jnp.pad(x, pad_width, mode=mode)
     out = None
     for delta, coeff in taps:
         start = pad_left + delta
@@ -236,7 +236,7 @@ def atrous_analysis_pair(
 
     Mirrors the fused low/high single pass of the reference SIMD tier
     (``extensions/internal/VectorOps.java:887``): both outputs reuse the same
-    rolled/extended views of ``x`` so XLA reads the signal once.
+    rolled or padded views of ``x`` so XLA reads the signal once.
     """
     boundary = _normalize_boundary(boundary)
     low_np = np.asarray(low)
@@ -245,17 +245,12 @@ def atrous_analysis_pair(
     n_taps = len(low_np)
     assert len(high_np) == n_taps
 
-    if boundary == "periodic":
-        views = x
-        wrap = n
-    elif boundary == "symmetric":
-        views = jnp.concatenate([x, jnp.flip(x, axis=-1)], axis=-1)
-        wrap = 2 * n
-    else:
-        deltas = _deltas(n_taps, spacing, -1, 0)
-        pad_left = max(0, -min(deltas))
+    pad_left = spacing * (n_taps - 1)
+    if boundary != "periodic":
+        # the padded form of atrous_convolve, shared by both filters
         pad_width = [(0, 0)] * (x.ndim - 1) + [(pad_left, 0)]
-        padded = jnp.pad(x, pad_width)
+        mode = "symmetric" if boundary == "symmetric" else "constant"
+        padded = jnp.pad(x, pad_width, mode=mode)
         approx = None
         detail = None
         for k in range(n_taps):
@@ -271,12 +266,9 @@ def atrous_analysis_pair(
     detail = None
     for k in range(n_taps):
         delta = -spacing * k
-        rolled = jnp.roll(views, -delta, axis=-1) if delta % wrap else views
+        rolled = jnp.roll(x, -delta, axis=-1) if delta % n else x
         a = rolled * float(low_np[k])
         d = rolled * float(high_np[k])
         approx = a if approx is None else approx + a
         detail = d if detail is None else detail + d
-    if boundary == "symmetric":
-        approx = approx[..., :n]
-        detail = detail[..., :n]
     return approx, detail

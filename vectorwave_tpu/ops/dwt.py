@@ -1,6 +1,6 @@
 """Decimated (fast) wavelet transform ops — DWT / IDWT / wavedec / waverec.
 
-TPU-native re-design of the reference's legacy decimated kernels
+Re-design of the reference's legacy decimated kernels
 (``/root/reference/vectorwave-core/.../wavelet/internal/ScalarOps.java:67-556``):
 
 * forward: ``out[i] = sum_j f[j] * x[(2i + j) mod N]`` (convolve + downsample

@@ -1,12 +1,12 @@
 """Operations facade: low-level MODWT convolution entry points + capability report.
 
-TPU-native re-design of ``WaveletOperations``
+Re-design of ``WaveletOperations``
 (``/root/reference/vectorwave-core/.../wavelet/WaveletOperations.java:17-123``):
 the scalar/FFT routing heuristic (``util/FftHeuristics.java:12-34``) is
-replaced by a static rule — on TPU the strided roll formulation never
-materializes à trous zeros, so the FFT path only wins for genuinely long
-base filters; ``get_performance_info`` reports the platform capabilities the
-way the reference reports Vector API availability.
+replaced by a static rule — the strided roll formulation never materializes
+à trous zeros, so the FFT path only engages for genuinely long base filters;
+``get_performance_info`` reports the platform the way the reference reports
+Vector API availability.
 """
 
 from __future__ import annotations
@@ -23,19 +23,16 @@ from .convolve import atrous_convolve, fft_circular_convolve
 #: upsampled length (FftHeuristics: N>=1024 && L > N/8) — a rule that is
 #: unsatisfiable for base filters (L <= 62 implies N <= 496 < 1024), i.e. the
 #: reference's MODWT FFT path can never trigger from its own heuristic.  Our
-#: kernels never touch the inserted zeros, so only the base tap count
-#: matters, and the measured crossover on a v5e chip
-#: (tools/probe_fft_crossover.py, 16x65536 f32) shows the rolled form
-#: matching the rfft pipeline even at dmey's 62 taps: roll ~760-1100 Ms/s
-#: vs FFT ~750-770 Ms/s flat.  FFT therefore engages only for custom
-#: registered filters longer than any built-in family.
+#: convolutions never touch the inserted zeros, so only the base tap count
+#: matters; FFT engages only for custom registered filters longer than any
+#: built-in family.  The crossover is not measured on the H100.
 FFT_MIN_SIGNAL = 1024
 FFT_MIN_TAPS = 64
 
 
 def should_use_fft(signal_length: int, base_filter_length: int) -> bool:
     """FFT-vs-direct routing (role of FftHeuristics.shouldUseModwtFFT :30-34,
-    re-derived for TPU; crossover measured on chip — see module constant)."""
+    re-derived for base filter lengths — see module constant)."""
     return base_filter_length >= FFT_MIN_TAPS and signal_length >= FFT_MIN_SIGNAL
 
 
@@ -71,23 +68,18 @@ class PerformanceInfo:
     platform: str
     device_kind: str
     device_count: int
-    pallas_kernels: bool
     description: str
 
 
 def get_performance_info() -> PerformanceInfo:
     devices = jax.devices()
     dev = devices[0]
-    from ..kernels.modwt_pallas import pallas_available
-
-    pallas = pallas_available()
-    tier = "fused Pallas TPU kernels" if pallas else "portable XLA (jnp) kernels"
     return PerformanceInfo(
         platform=dev.platform,
         device_kind=dev.device_kind,
         device_count=len(devices),
-        pallas_kernels=pallas,
         description=(
-            f"{len(devices)}x {dev.device_kind} ({dev.platform}); compute tier: {tier}"
+            f"{len(devices)}x {dev.device_kind} ({dev.platform}); compute "
+            "tier: XLA"
         ),
     )

@@ -1,6 +1,6 @@
 """Thresholding and noise-estimation primitives (pure jnp, jit-safe).
 
-TPU-native re-design of the reference's threshold kernels and selection rules
+Re-design of the reference's threshold kernels and selection rules
 (``/root/reference/vectorwave-core/.../wavelet/internal/ScalarOps.java:1013-1044``
 soft/hard apply; ``denoising/WaveletDenoiser.java:372-546`` sigma estimation and
 UNIVERSAL/SURE/MINIMAX/BAYES selection).  Everything is expressed as
@@ -91,15 +91,15 @@ def _middle_order_stats(v: jnp.ndarray) -> jnp.ndarray:
 def median_magnitude(v: jnp.ndarray) -> jnp.ndarray:
     """Exact median of ``|v|`` along the last axis, without a sort.
 
-    ``jnp.median`` lowers to a full per-signal SORT — ~13 ms for 128x64K on
-    a v5e chip, dwarfing the denoise transform itself.  Non-negative f32
+    ``jnp.median`` lowers to a full per-signal SORT, which can cost more
+    than the denoise transform itself.  Non-negative f32
     values order-match their int32 bit patterns, so the k-th order
     statistic is a 31-step binary search on the bit pattern: build the
     answer MSB->LSB, keeping a candidate bit iff fewer than k elements are
     strictly below the candidate.  Both middle order stats (even n) ride
-    the same counting passes.  O(31 n) compares streaming from HBM beats
-    O(n log n) sort by ~6x at 64K signals and matches ``jnp.median``
-    bit-for-bit (guarded in tests).
+    the same counting passes: O(31 n) streaming compares instead of an
+    O(n log n) sort, matching ``jnp.median`` bit-for-bit (guarded in
+    tests).
 
     Differentiable via a custom JVP (the bit search itself has no
     derivative): the exact subgradient routes through the positions that
@@ -145,8 +145,8 @@ def mad_sigma(detail: jnp.ndarray) -> jnp.ndarray:
     Computed per signal along the last axis; the result keeps a trailing
     singleton axis so it broadcasts against ``[..., N]`` coefficients.
     The median uses the sort-free bitwise order-statistic search
-    (:func:`median_magnitude`) — exact, and ~6x faster than ``jnp.median``
-    on large batched inputs on TPU.
+    (:func:`median_magnitude`) — exact, and sort-free (not measured against
+    ``jnp.median`` on the H100).
     """
     return median_magnitude(detail) / MAD_SCALE
 

@@ -24,7 +24,7 @@ handle what they are good at:
    the Wiener transfer function — the same exact-bank-response idea as
    :mod:`..transforms.significance`.
 
-TPU mapping: one rfft/irfft pair + the fused MODWT cascade; everything is a
+Mapping: one rfft/irfft pair + the fused MODWT cascade; everything is a
 single jittable graph over ``[..., N]`` batches (the per-level impulse
 responses are trace-time constants).  Periodic boundary only — that is the
 circular-convolution model itself.

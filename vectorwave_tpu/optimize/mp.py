@@ -6,10 +6,10 @@ a few wavelet atoms ``x ~ sum_k c_k psi_{s_k}(t - tau_k)``.  Where the CWT
 step picks the single atom with the largest normalized correlation against
 the current residual, subtracts its projection, and repeats; residual energy
 decreases monotonically (Mallat & Zhang 1993) and the chosen (scale, shift,
-coefficient) triples are a sparse, interpretable summary (transients,
+coefficient) triples are a sparse, readable summary (transients,
 oscillatory bursts, their amplitudes).
 
-TPU-native design: the whole pursuit is ONE jitted ``lax.fori_loop``.
+Design: the whole pursuit is ONE jitted ``lax.fori_loop``.
 
 * All correlations at once: one ``irfft(rfft(res) * conj(bank))`` gives
   ``<res, atom(s, tau)>`` for EVERY scale and shift — the periodic CWT

@@ -8,7 +8,7 @@ and recovery from arbitrary differentiable measurement maps (compressed
 sensing), each solved by accelerated proximal gradient (FISTA,
 Beck & Teboulle 2009).
 
-TPU-native design:
+Design:
 
 - The per-stage ``1/sqrt(2)`` MODWT is a Parseval tight frame (energy
   identity, ``tests/test_modwt.py``), so the synthesis operator has unit
@@ -54,10 +54,8 @@ __all__ = [
 
 
 #: default decomposition depth cap for the solvers.  Deep frames are both
-#: SLOW (iteration cost grows in J, and max_levels of a 1M signal is 17 —
-#: far past the fused kernel's halo budget, dropping the whole FISTA loop
-#: to the portable cascade: 1,198 vs 252 ms per 200-step 1M solve) and
-#: WRONG for recovery: lambda-continuation shrinks every detail level, so
+#: SLOW (iteration cost grows in J, and max_levels of a 1M signal is 17)
+#: and WRONG for recovery: lambda-continuation shrinks every detail level, so
 #: coarse structure must survive in the UNPENALIZED approx plane — at
 #: J=17 the approx is ~the global mean and a smooth 1M test signal FAILS
 #: to interpolate (rel err 1.27 on missing samples) where the capped

@@ -1,6 +1,6 @@
 """Signal padding strategies.
 
-TPU-native re-design of the reference's sealed strategy hierarchy
+Re-design of the reference's sealed strategy hierarchy
 (``/root/reference/vectorwave-core/.../wavelet/padding/*.java`` — 12
 strategies): one functional entry point :func:`pad_signal` with a strategy
 name, plus :func:`adaptive_strategy` reproducing the adaptive chooser's

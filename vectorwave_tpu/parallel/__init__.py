@@ -2,9 +2,7 @@ from .mesh import default_mesh, make_mesh
 from .batch import shard_batch, modwt_multilevel_sharded_batch
 from .tiled import (
     imodwt_multilevel_tiled,
-    imodwt_multilevel_tiled_exact,
     modwt_multilevel_tiled,
-    modwt_multilevel_tiled_exact,
     tiled_roundtrip_check,
 )
 from .cwt_tiled import cwt_tiled, cwt_tiled_2d
@@ -28,8 +26,6 @@ __all__ = [
     "imodwt_multilevel_tiled",
     "modwt2_multilevel_tiled",
     "imodwt2_multilevel_tiled",
-    "modwt_multilevel_tiled_exact",
-    "imodwt_multilevel_tiled_exact",
     "tiled_roundtrip_check",
     "make_multihost_mesh",
     "modwt_multilevel_multihost",

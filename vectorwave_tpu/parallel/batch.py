@@ -1,12 +1,12 @@
 """Batch (data-parallel) sharded transforms.
 
-TPU-native counterpart of the reference's batch fan-out tier
+Counterpart of the reference's batch fan-out tier
 (``extensions/modwt/BatchMODWT.java``, ``BatchSIMDMODWT`` SoA lanes,
 ``extensions/parallel/StructuredParallelTransform.java`` and
 ``ParallelWaveletDenoiser.java``): arrays are natively "SoA", so batch
 parallelism is just a sharded leading axis — XLA runs each shard's transform
 locally with ZERO communication (the MODWT is independent per signal), and
-reductions (energies, statistics) ride ICI as ``psum``-style collectives
+reductions (energies, statistics) ride the card links as ``psum``-style collectives
 inserted automatically by the partitioner.
 """
 
@@ -41,15 +41,9 @@ def modwt_multilevel_sharded_batch(
     with explicit output shardings so results stay distributed.
     """
     x = shard_batch(x, mesh, axis=axis)
-    # kernel-tier routing must follow the MESH's devices, not the default
-    # backend (e.g. a CPU validation mesh while a TPU is the default)
-    mesh_platform = next(iter(mesh.devices.flat)).platform
-    backend = None if mesh_platform == "tpu" else "jnp"
 
     @jax.jit
     def run(x):
-        return modwt_multilevel(
-            x, wavelet, levels=levels, boundary=boundary, backend=backend
-        )
+        return modwt_multilevel(x, wavelet, levels=levels, boundary=boundary)
 
     return run(x)

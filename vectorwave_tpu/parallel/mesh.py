@@ -2,14 +2,14 @@
 
 The reference's parallel tier is thread pools + SIMD lanes
 (``extensions/parallel/ParallelConfig.java``, ``StructuredExecutor.java``);
-the TPU-native equivalents are mesh axes:
+the equivalents here are mesh axes:
 
 * ``data``   — batch sharding (the SoA-lane / batch fan-out analogue)
 * ``signal`` — long-signal tiling with halo exchange (the output-range
   chunking / streaming-history analogue)
 
-Meshes span ICI within a slice; multi-host slices come for free from JAX's
-multi-controller runtime (DCN for host orchestration).
+Meshes span the NVLink-joined cards of one host; several hosts come from
+JAX's multi-controller runtime (see :mod:`.multihost`).
 """
 
 from __future__ import annotations

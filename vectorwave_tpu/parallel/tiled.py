@@ -1,6 +1,6 @@
 """Long-signal MODWT tiled across chips with halo exchange.
 
-This is the distributed centerpiece: the TPU-native analogue of the
+This is the distributed centerpiece: the analogue of the
 reference's intra-signal parallelism — the SWT adapter's output-range
 chunking (``swt/VectorWaveSwtAdapter.java:210-240``) and the streaming
 kernels' left-history halos of ``L_j - 1 = (L0-1)*2^(j-1)`` samples
@@ -9,8 +9,8 @@ kernels' left-history halos of ``L_j - 1 = (L0-1)*2^(j-1)`` samples
 
 A length-N signal is sharded along its last axis over a mesh axis; inside
 ``shard_map`` each level exchanges exactly the filter-support halo with its
-ring neighbors via ``jax.lax.ppermute`` (ICI neighbor traffic, no
-all-gather), then runs the same local à trous convolution as the
+ring neighbors via ``jax.lax.ppermute`` (neighbor traffic over the
+card-to-card links, no all-gather), then runs the same local à trous convolution as the
 single-chip path.  PERIODIC uses the ring wrap link (global circular parity
 is exact); ZERO drops the wrap link — ``ppermute`` zero-fills missing
 sources, which IS the zero extension; SYMMETRIC mirrors the edge shards'
@@ -18,7 +18,7 @@ own data.  Halos wider than one shard (deep levels) are gathered hop-by-hop.
 
 Multi-level cascades therefore match the single-device transform to
 machine precision (op order inside the compiled program may differ):
-config #5-style 1M-sample signals decompose across a slice with per-level
+config #5-style 1M-sample signals decompose across the cards with per-level
 halos of (L0-1)*2^(j-1) samples — e.g. 224 samples/boundary for a 6-level
 db4.
 """
@@ -35,6 +35,7 @@ from ..ops.convolve import atrous_analysis_pair, atrous_convolve, effective_leng
 from ..transforms.modwt import _resolve_discrete
 from ..transforms.multilevel import (
     MultiLevelMODWTResult,
+    _check_backend,
     _check_level_fits,
     _symmetric_alignment,
     _tau_j,
@@ -118,32 +119,6 @@ def _mirror_tail(x: jnp.ndarray, length: int) -> jnp.ndarray:
     return jnp.concatenate(tiles[::-1], axis=-1)[..., -length:]
 
 
-def _resolve_tiled_backend(backend: str, boundary_l: str) -> str:
-    """'auto' routes shard-local compute through the composite MXU kernel on
-    TPU for periodic/zero (the fast path — matching the reference's contract
-    that the halo'd distributed blocks run the SAME fast kernel as the
-    single-chip path, ``BatchSIMDMODWT.java:447-508``); symmetric and
-    non-TPU backends keep the exact jnp cascade."""
-    from ..kernels.modwt_pallas import pallas_available
-
-    if backend == "auto":
-        kernel_ok = boundary_l.startswith(("per", "zero"))
-        return "pallas" if (kernel_ok and pallas_available()) else "jnp"
-    if backend not in ("jnp", "pallas"):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_INVALID_CONFIG,
-            f"Unknown tiled backend {backend!r}",
-            suggestions=("Use 'auto', 'jnp' or 'pallas'",),
-        )
-    if backend == "pallas" and not boundary_l.startswith(("per", "zero")):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
-            "The tiled Pallas backend serves periodic/zero boundaries",
-            suggestions=("Use backend='jnp' for symmetric tiling",),
-        )
-    return backend
-
-
 def modwt_multilevel_tiled(
     x: jnp.ndarray,
     wavelet,
@@ -154,26 +129,16 @@ def modwt_multilevel_tiled(
     boundary: str = "periodic",
     batch_axis: str | None = None,
     backend: str = "auto",
-    precision: str | None = None,
 ) -> MultiLevelMODWTResult:
     """Multi-level MODWT of a signal sharded along its LAST axis.
 
     Machine-precision parity with the single-device ``modwt_multilevel``
-    for every boundary mode; communication is one halo exchange per level
-    over ICI.
+    for every boundary mode (float64 input gives the float64 tier).
+    Periodic/zero exchange ONE cumulative halo of ``(L0-1)(2^J-1)`` samples
+    per shard; symmetric exchanges one halo per level.
     ``batch_axis`` optionally shards the FIRST axis over a second mesh axis
-    (e.g. batch over a DCN "host" axis — see :mod:`.multihost`); halos only
-    ever ``ppermute`` over ``axis``.
-
-    ``backend='auto'`` runs shard-local compute through the composite-filter
-    MXU kernel on TPU for periodic/zero: ONE cumulative halo of
-    ``(L0-1)(2^J-1)`` samples is exchanged per shard (instead of one
-    exchange per level) and the whole local cascade is a single
-    zero-boundary kernel call fed the neighbor slab directly (the kernel's
-    ``edge='external'`` DMA path), so per-chip throughput inside the
-    sharded transform matches the single-chip kernel rate.  Parity with the
-    single-device ``fused_analysis`` at the same ``precision`` is exact up
-    to summation order.
+    (see :mod:`.multihost`); halos only ever ``ppermute`` over ``axis``.
+    ``backend`` accepts ``'auto'``/``'jnp'`` (the same path).
     """
     w = _resolve_discrete(wavelet)
     boundary_l = boundary.lower()
@@ -190,23 +155,17 @@ def modwt_multilevel_tiled(
     high = w.dec_hi * _INV_SQRT2
     wrap = boundary_l.startswith("per")
     from_left, _ = _ring_perms(axis, mesh, wrap)
-    resolved = _resolve_tiled_backend(backend, boundary_l)
-    if resolved == "pallas":
-        return _modwt_tiled_pallas(
-            x, w, levels=levels, mesh=mesh, axis=axis, wrap=wrap,
-            batch_axis=batch_axis, precision=precision,
-        )
+    _check_backend(backend)
 
     def shard_fn(x_local):
         idx = jax.lax.axis_index(axis)
         if not boundary_l.startswith("sym"):
             # ONE cumulative raw-x halo of (L0-1)(2^J-1) samples, then the
             # whole local cascade zero-extended on [halo | x] — the same
-            # structure as the kernel path (and the streaming carry): total
-            # exchanged bytes equal the per-level halos, but J ppermute
-            # sync points collapse to ceil(span/n_loc) (VERDICT r04 #5;
-            # bytes/hops model in SCALING.md).  Periodic wrap and the
-            # global zero edge both ride _gather_halo's hop chain.
+            # structure as the streaming carry: total exchanged bytes equal
+            # the per-level halos, but J ppermute sync points collapse to
+            # ceil(span/n_loc).  Periodic wrap and the global zero edge
+            # both ride _gather_halo's hop chain.
             n_loc = x_local.shape[-1]
             span = (w.filter_length - 1) * ((1 << levels) - 1)
             halo = _gather_halo(x_local, span, axis, from_left, "left")
@@ -283,130 +242,6 @@ def _tile_spec(ndim: int, axis: str, batch_axis: str | None) -> P:
     return P(batch_axis, *([None] * (ndim - 2)), axis)
 
 
-def _modwt_tiled_pallas(
-    x: jnp.ndarray, w, *, levels: int, mesh: Mesh, axis: str, wrap: bool,
-    batch_axis: str | None, precision: str | None,
-) -> MultiLevelMODWTResult:
-    """Shard-local analysis through the composite MXU kernel: one cumulative
-    halo ppermute, then a single ``edge='external'`` kernel call."""
-    from ..config import get_fused_precision
-    from ..kernels.modwt_mxu import (
-        _composite_halo_rows,
-        run_analysis_composite,
-    )
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    prec = precision or get_fused_precision()
-    interpret = not pallas_available()
-    filters = _kernel_filters(w, synthesis=False)
-    # Exchange the kernel's full row-quantized halo slab (a whole number of
-    # 128-lane rows >= the (L0-1)(2^J-1) composite span): the slices and the
-    # kernel-side padding then stay block-aligned — sub-row halo slices cost
-    # more in strided DMA than the few extra columns cost on the wire.
-    span = _composite_halo_rows(w.filter_length, levels) * 128
-    from_left, _ = _ring_perms(axis, mesh, wrap)
-
-    def shard_fn(x_local):
-        lead = x_local.shape[:-1]
-        n_loc = x_local.shape[-1]
-        x2 = x_local.reshape((-1, n_loc))
-        eff_span = min(span, n_loc * mesh.shape[axis])
-        if eff_span <= n_loc and n_loc % 128 == 0 and eff_span % 128 == 0:
-            # Slice the halo in the kernel's native [B, rows, 128] view:
-            # slicing the flat [B, N] bitcast of a buffer that ALSO feeds the
-            # pallas call makes XLA copy-insert the full planes (~0.1 ms per
-            # 32 MB plane on chip); row-view slices alias cleanly.
-            rows = x2.reshape(-1, n_loc // 128, 128)
-            send = rows[:, -(eff_span // 128):, :].reshape(-1, eff_span)
-            halo = jax.lax.ppermute(send, axis, from_left)
-        else:
-            halo = _gather_halo(x2, eff_span, axis, from_left, "left")
-        outs = run_analysis_composite(
-            x2, levels, filters, False, 65536, prec, interpret, halo=halo,
-        )
-        outs = tuple(o.reshape(lead + (n_loc,)) for o in outs)
-        return outs[:levels], outs[levels]
-
-    spec = _tile_spec(x.ndim, axis, batch_axis)
-    fn = _cached_program(
-        ("fwd-pallas", _wavelet_key(w), levels, mesh, axis, wrap, batch_axis,
-         x.ndim, prec, interpret),
-        lambda: jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(spec,),
-            out_specs=(tuple(spec for _ in range(levels)), spec),
-            check_vma=False,  # pallas_call outputs carry no vma metadata
-        ),
-    )
-    x = jax.device_put(x, NamedSharding(mesh, spec))
-    details, approx = fn(x)
-    return MultiLevelMODWTResult(tuple(details), approx)
-
-
-def _imodwt_tiled_pallas(
-    result: MultiLevelMODWTResult, w, *, mesh: Mesh, axis: str, wrap: bool,
-    batch_axis: str | None, precision: str | None,
-) -> jnp.ndarray:
-    """Shard-local synthesis through the composite MXU kernel: one cumulative
-    RIGHT halo ppermute per plane, then a single external-halo kernel call."""
-    from ..config import get_fused_precision
-    from ..kernels.modwt_mxu import (
-        _composite_halo_rows,
-        run_synthesis_composite,
-    )
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    prec = precision or get_fused_precision()
-    interpret = not pallas_available()
-    filters = _kernel_filters(w, synthesis=True)
-    levels = result.levels
-    # Full row-quantized slab, as in the forward path (block-aligned DMA).
-    span = _composite_halo_rows(w.filter_length, levels) * 128
-    _, from_right = _ring_perms(axis, mesh, wrap)
-
-    def shard_fn(details, approx):
-        planes = tuple(details) + (approx,)
-        lead = approx.shape[:-1]
-        n_loc = approx.shape[-1]
-        p2 = tuple(p.reshape((-1, n_loc)) for p in planes)
-        eff_span = min(span, n_loc * mesh.shape[axis])
-        if eff_span <= n_loc and n_loc % 128 == 0 and eff_span % 128 == 0:
-            # ONE collective for all planes, sliced in the kernel's native
-            # [B, rows, 128] view — flat-view slices of pallas-call operands
-            # make XLA copy-insert the full planes (see forward path).
-            hr = eff_span // 128
-            send = jnp.stack(
-                [p.reshape(-1, n_loc // 128, 128)[:, :hr, :] for p in p2]
-            ).reshape(len(p2), -1, eff_span)
-            recv = jax.lax.ppermute(send, axis, from_right)
-            halos = tuple(recv[i] for i in range(len(p2)))
-        else:
-            halos = tuple(
-                _gather_halo(p, eff_span, axis, from_right, "right")
-                for p in p2
-            )
-        out = run_synthesis_composite(
-            p2, levels, filters, False, 65536, prec, interpret, halo=halos,
-        )
-        return out.reshape(lead + (n_loc,))
-
-    ndim = result.approx.ndim
-    spec = _tile_spec(ndim, axis, batch_axis)
-    fn = _cached_program(
-        ("inv-pallas", _wavelet_key(w), levels, mesh, axis, wrap, batch_axis,
-         ndim, prec, interpret),
-        lambda: jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(tuple(spec for _ in range(levels)), spec),
-            out_specs=spec,
-            check_vma=False,  # pallas_call outputs carry no vma metadata
-        ),
-    )
-    return fn(result.details, result.approx)
-
-
 def imodwt_multilevel_tiled(
     result: MultiLevelMODWTResult,
     wavelet,
@@ -416,7 +251,6 @@ def imodwt_multilevel_tiled(
     boundary: str = "periodic",
     batch_axis: str | None = None,
     backend: str = "auto",
-    precision: str | None = None,
 ) -> jnp.ndarray:
     """Inverse of :func:`modwt_multilevel_tiled`, all three boundary modes.
 
@@ -435,11 +269,7 @@ def imodwt_multilevel_tiled(
     low = w.rec_lo * _INV_SQRT2
     high = w.rec_hi * _INV_SQRT2
     wrap = boundary_l.startswith("per")
-    if _resolve_tiled_backend(backend, boundary_l) == "pallas":
-        return _imodwt_tiled_pallas(
-            result, w, mesh=mesh, axis=axis, wrap=wrap,
-            batch_axis=batch_axis, precision=precision,
-        )
+    _check_backend(backend)
     from_left, from_right = _ring_perms(axis, mesh, wrap)
     levels = result.levels
     size = mesh.shape[axis]
@@ -554,205 +384,3 @@ def tiled_roundtrip_check(
         res, wavelet, mesh=mesh, axis=axis, boundary="periodic"
     )
     return float(jnp.max(jnp.abs(xr - x)))
-
-
-# ---------------------------------------------------------------------------
-# EXACT (<=1e-10) sharded tier: the double-float/Ozaki-sliced kernels of
-# kernels/modwt_exact.py run shard-locally, with the halo exchanged over the
-# ring exactly like the fast tier — the analysis halo is RAW f32 input
-# (exact by construction), the synthesis halo is each plane's double-float
-# (hi, lo) tail, so the sharded round trip keeps the single-chip parity
-# contract (BASELINE.json's <=1e-10 gate; reference meets it in-process,
-# ModwtPeriodicRoundTripTest.java:37).
-# ---------------------------------------------------------------------------
-
-
-def modwt_multilevel_tiled_exact(
-    x: jnp.ndarray,
-    wavelet,
-    *,
-    levels: int,
-    mesh: Mesh,
-    axis: str = "signal",
-    boundary: str = "periodic",
-    batch_axis: str | None = None,
-    interpret: bool | None = None,
-    profile: str = "balanced",
-):
-    """Sharded exact analysis: (details pairs tuple, approx pair), each
-    plane a double-float ``(hi, lo)`` pair sharded like the input."""
-    from ..kernels.modwt_exact import analysis_exact
-    from ..kernels.modwt_mxu import _composite_halo_rows
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    w = _resolve_discrete(wavelet)
-    boundary_l = boundary.lower()
-    if not (boundary_l.startswith("per") or boundary_l.startswith("zero")):
-        raise InvalidArgumentError(
-            ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
-            "Exact tiled analysis supports periodic/zero boundaries",
-        )
-    wrap = boundary_l.startswith("per")
-    if interpret is None:
-        interpret = not pallas_available()
-    filters = _kernel_filters(w, synthesis=False)
-    span = _composite_halo_rows(w.filter_length, levels) * 128
-    from_left, _ = _ring_perms(axis, mesh, wrap)
-
-    def shard_fn(x_local):
-        lead = x_local.shape[:-1]
-        n_loc = x_local.shape[-1]
-        x2 = x_local.reshape((-1, n_loc))
-        n_glob = n_loc * mesh.shape[axis]
-        if wrap and span >= n_glob:
-            # periodic composite span >= global length: the extension
-            # wraps MORE than once, which the single halo slab cannot
-            # express — all_gather and run the single-device exact
-            # transform (cheap by definition in that regime; mirrors
-            # tiled2d's multi-wrap path)
-            idx = jax.lax.axis_index(axis)
-            full = jax.lax.all_gather(x2, axis, axis=-1, tiled=True)
-            pairs = analysis_exact(
-                full, levels, filters, True, interpret=interpret,
-                profile=profile,
-            )
-            start = idx * n_loc
-
-            def sl(v):
-                return jax.lax.dynamic_slice_in_dim(v, start, n_loc, axis=-1)
-
-            out = tuple(
-                (sl(h).reshape(lead + (n_loc,)),
-                 sl(l).reshape(lead + (n_loc,)))
-                for h, l in pairs
-            )
-            return out[:levels], out[levels]
-        eff_span = min(span, n_glob)
-        if eff_span <= n_loc and n_loc % 128 == 0 and eff_span % 128 == 0:
-            rows = x2.reshape(-1, n_loc // 128, 128)
-            send = rows[:, -(eff_span // 128):, :].reshape(-1, eff_span)
-            halo = jax.lax.ppermute(send, axis, from_left)
-        else:
-            halo = _gather_halo(x2, eff_span, axis, from_left, "left")
-        pairs = analysis_exact(
-            x2, levels, filters, False, interpret=interpret, halo=halo,
-            profile=profile,
-        )
-        out = tuple(
-            (h.reshape(lead + (n_loc,)), l.reshape(lead + (n_loc,)))
-            for h, l in pairs
-        )
-        return out[:levels], out[levels]
-
-    spec = _tile_spec(x.ndim, axis, batch_axis)
-    pair_spec = (spec, spec)
-    fn = _cached_program(
-        ("fwd-exact", _wavelet_key(w), levels, mesh, axis, wrap, batch_axis,
-         x.ndim, interpret, profile),
-        lambda: jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(spec,),
-            out_specs=(tuple(pair_spec for _ in range(levels)), pair_spec),
-            check_vma=False,
-        ),
-    )
-    x = jax.device_put(x, NamedSharding(mesh, spec))
-    return fn(x)
-
-
-def imodwt_multilevel_tiled_exact(
-    details,
-    approx,
-    wavelet,
-    *,
-    mesh: Mesh,
-    axis: str = "signal",
-    boundary: str = "periodic",
-    batch_axis: str | None = None,
-    interpret: bool | None = None,
-    profile: str = "balanced",
-):
-    """Sharded exact synthesis from double-float plane pairs: returns the
-    reconstructed ``(hi, lo)`` pair (combine in f64 on host to evaluate)."""
-    from ..kernels.modwt_exact import synthesis_exact
-    from ..kernels.modwt_mxu import _composite_halo_rows
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    w = _resolve_discrete(wavelet)
-    boundary_l = boundary.lower()
-    wrap = boundary_l.startswith("per")
-    if interpret is None:
-        interpret = not pallas_available()
-    levels = len(details)
-    filters = _kernel_filters(w, synthesis=True)
-    span = _composite_halo_rows(w.filter_length, levels) * 128
-    _, from_right = _ring_perms(axis, mesh, wrap)
-
-    def shard_fn(details_pairs, approx_pair):
-        pairs = tuple(details_pairs) + (approx_pair,)
-        lead = approx_pair[0].shape[:-1]
-        n_loc = approx_pair[0].shape[-1]
-        p2 = tuple(
-            (h.reshape((-1, n_loc)), l.reshape((-1, n_loc))) for h, l in pairs
-        )
-        n_glob = n_loc * mesh.shape[axis]
-        if wrap and span >= n_glob:
-            # multi-wrap periodic extension — all_gather every plane pair
-            # and run the single-device exact synthesis (see the analysis
-            # counterpart above)
-            idx = jax.lax.axis_index(axis)
-            full_pairs = tuple(
-                (jax.lax.all_gather(h, axis, axis=-1, tiled=True),
-                 jax.lax.all_gather(l, axis, axis=-1, tiled=True))
-                for h, l in p2
-            )
-            hi_f, lo_f = synthesis_exact(
-                full_pairs, levels, filters, True, interpret=interpret,
-                profile=profile,
-            )
-            start = idx * n_loc
-            hi = jax.lax.dynamic_slice_in_dim(hi_f, start, n_loc, axis=-1)
-            lo = jax.lax.dynamic_slice_in_dim(lo_f, start, n_loc, axis=-1)
-            return hi.reshape(lead + (n_loc,)), lo.reshape(lead + (n_loc,))
-        eff_span = min(span, n_glob)
-        flat_planes = [p for pair in p2 for p in pair]
-        if eff_span <= n_loc and n_loc % 128 == 0 and eff_span % 128 == 0:
-            hr = eff_span // 128
-            send = jnp.stack(
-                [p.reshape(-1, n_loc // 128, 128)[:, :hr, :]
-                 for p in flat_planes]
-            ).reshape(len(flat_planes), -1, eff_span)
-            recv = jax.lax.ppermute(send, axis, from_right)
-            halos = tuple(
-                (recv[2 * i], recv[2 * i + 1]) for i in range(len(p2))
-            )
-        else:
-            gath = [
-                _gather_halo(p, eff_span, axis, from_right, "right")
-                for p in flat_planes
-            ]
-            halos = tuple(
-                (gath[2 * i], gath[2 * i + 1]) for i in range(len(p2))
-            )
-        hi, lo = synthesis_exact(
-            p2, levels, filters, False, interpret=interpret, halo=halos,
-            profile=profile,
-        )
-        return hi.reshape(lead + (n_loc,)), lo.reshape(lead + (n_loc,))
-
-    ndim = approx[0].ndim
-    spec = _tile_spec(ndim, axis, batch_axis)
-    pair_spec = (spec, spec)
-    fn = _cached_program(
-        ("inv-exact", _wavelet_key(w), levels, mesh, axis, wrap, batch_axis,
-         ndim, interpret, profile),
-        lambda: jax.shard_map(
-            shard_fn,
-            mesh=mesh,
-            in_specs=(tuple(pair_spec for _ in range(levels)), pair_spec),
-            out_specs=pair_spec,
-            check_vma=False,
-        ),
-    )
-    return fn(tuple(details), approx)

@@ -169,8 +169,7 @@ def modwt2_multilevel_tiled(
             out_specs=(
                 tuple((spec, spec, spec) for _ in range(levels)), spec
             ),
-            check_vma=False,  # the symmetric branch's local op may route
-            # through pallas calls, whose outputs carry no vma metadata
+            check_vma=False,
         ),
     )
     x = jax.device_put(x, NamedSharding(mesh, spec))

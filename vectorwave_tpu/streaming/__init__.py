@@ -1,11 +1,7 @@
 from .stream import (
-    KernelStreamingState,
     StreamingState,
     StreamingTransform,
-    kernel_history_length,
-    kernel_streaming_init,
     modwt_stream_block,
-    modwt_stream_block_kernel,
     modwt_stream_flush,
     streaming_init,
     suggest_flush_tail_length,
@@ -21,14 +17,10 @@ from .sliding import (
 )
 from .ingest import StreamIngest
 from .denoiser_stream import (
-    KernelStreamingDenoiserState,
     StreamingDenoiser,
     StreamingDenoiserState,
-    kernel_streaming_denoiser_init,
     streaming_denoiser_init,
     streaming_denoise_block,
-    streaming_denoise_block_kernel,
-    streaming_denoise_blocks_kernel,
 )
 
 __all__ = [
@@ -36,10 +28,6 @@ __all__ = [
     "StreamingTransform",
     "streaming_init",
     "modwt_stream_block",
-    "KernelStreamingState",
-    "kernel_streaming_init",
-    "kernel_history_length",
-    "modwt_stream_block_kernel",
     "modwt_stream_flush",
     "suggest_flush_tail_length",
     "SlidingStreamingTransform",
@@ -51,11 +39,7 @@ __all__ = [
     "step_size",
     "StreamIngest",
     "StreamingDenoiserState",
-    "KernelStreamingDenoiserState",
     "streaming_denoiser_init",
-    "kernel_streaming_denoiser_init",
     "streaming_denoise_block",
-    "streaming_denoise_block_kernel",
-    "streaming_denoise_blocks_kernel",
     "StreamingDenoiser",
 ]

@@ -1,6 +1,6 @@
 """Streaming wavelet denoiser with running noise estimation.
 
-TPU-native re-design of ``MODWTStreamingDenoiser``
+Re-design of ``MODWTStreamingDenoiser``
 (``/root/reference/vectorwave-core/.../modwt/streaming/MODWTStreamingDenoiser.java:36-504``)
 and the streaming facade (``streaming/StreamingDenoiserFactory.java:21-120``
 FAST/QUALITY implementations): the builder + Flow.Publisher becomes an
@@ -18,7 +18,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from ..errors import ErrorCode, InvalidArgumentError
@@ -60,12 +59,10 @@ def _update_noise_window(
     (``updateNoiseEstimation`` :103-199): every (B/samples)-th coefficient.
 
     The window is a SHIFT REGISTER (newest samples at the end), not a
-    cursor ring: the cursor write ``window.at[(pos + arange) % w].set``
-    is a dynamic scatter — TPU lowers it to the scalar path, and it ran
-    every block inside the streaming chain (VERDICT r04 #4).  Dropping
-    the oldest ``take`` and appending is two STATIC slices with the same
-    multiset of retained samples, so sigma (median/std over the window)
-    is unchanged.  ``pos`` stays as the reference's cursor statistic.
+    cursor ring: dropping the oldest ``take`` and appending is two STATIC
+    slices instead of a dynamic scatter, with the same multiset of retained
+    samples, so sigma (median/std over the window) is unchanged.  ``pos``
+    stays as the reference's cursor statistic.
     """
     n = detail.shape[-1]
     w = window.shape[-1]
@@ -136,342 +133,6 @@ def _reconstruct_block(coeffs: MultiLevelMODWTResult, w) -> jnp.ndarray:
     return imodwt_multilevel(coeffs, w, boundary="zero")
 
 
-# ---------------------------------------------------------------------------
-# Kernel tier: the whole denoise step (analysis -> threshold -> synthesis)
-# as ONE fused composite-kernel pass per block, with the raw-x stream tail
-# as the kernel's external analysis halo (the same carry-as-halo trick as
-# kernels/modwt_mxu.run_denoise_composite_stream / streaming.stream's
-# modwt_stream_block_kernel).  The reference's fastest kernel IS its
-# streaming kernel (BatchSIMDMODWT.java:447-508 serving
-# MODWTStreamingDenoiser); here the streaming denoiser rides the fused
-# one-pass kernel instead of a per-block jnp cascade.
-# ---------------------------------------------------------------------------
-
-
-class KernelStreamingDenoiserState(NamedTuple):
-    """Carry for :func:`streaming_denoise_block_kernel`: a raw-input tail
-    (the analysis halo) plus the noise ring — no per-level histories."""
-
-    history: jnp.ndarray  # [..., span] raw x before the next block
-    noise_window: jnp.ndarray  # [..., W] ring of sampled |detail| values
-    window_pos: jnp.ndarray  # scalar int32
-    window_fill: jnp.ndarray  # scalar int32
-
-
-def kernel_streaming_denoiser_init(
-    wavelet,
-    *,
-    levels: int = 1,
-    noise_window_size: int = 256,
-    batch_shape: tuple[int, ...] = (),
-    dtype=jnp.float32,
-) -> KernelStreamingDenoiserState:
-    from .stream import kernel_history_length
-
-    span = kernel_history_length(wavelet, levels)
-    return KernelStreamingDenoiserState(
-        jnp.zeros(batch_shape + (max(span, 1),), dtype=dtype),
-        jnp.zeros(batch_shape + (noise_window_size,), dtype=dtype),
-        jnp.zeros((), dtype=jnp.int32),
-        jnp.zeros((), dtype=jnp.int32),
-    )
-
-
-def _sampled_d1(history: jnp.ndarray, block: jnp.ndarray, w, take: int):
-    """The stratified level-1 detail samples the noise ring consumes,
-    computed directly from raw x (history + block) with the scaled analysis
-    taps — identical values to ``coeffs.details[0][..., :take*stride:stride]``
-    of the jnp streaming cascade, without materializing the full plane.
-
-    When ``stride >= L`` (every production shape) the samples are built
-    from strided block slices plus L-1 scalar history reads — no
-    ``[hist | block]`` concat, which materialized an extra copy of the
-    whole block per streaming step (VERDICT r04 #4's remaining
-    out-of-kernel work).
-    """
-    hi = [float(v) * _INV_SQRT2 for v in w.dec_hi]
-    length = len(hi)
-    n = block.shape[-1]
-    stride = max(1, n // take)
-    if stride < length or take < 2:
-        # tiny blocks: sample positions reach into history — concat path
-        hist_tail = (
-            history[..., -(length - 1):] if length > 1 else history[..., :0]
-        )
-        x_cat = jnp.concatenate([hist_tail, block], axis=-1)
-        off = x_cat.shape[-1] - n
-        acc = None
-        for k, h in enumerate(hi):
-            sl = x_cat[..., off - k: off - k + (take - 1) * stride + 1: stride]
-            term = h * sl
-            acc = term if acc is None else acc + term
-        return acc
-    # d1[p] = sum_k hi[k] x[p - k]; p = 0 reads the history tail, every
-    # later sample position (p = j*stride >= L-1) stays inside the block
-    first = None
-    rest = None
-    for k, h in enumerate(hi):
-        f = block[..., :1] if k == 0 else history[..., -k: (-k + 1) or None]
-        first = h * f if first is None else first + h * f
-        sl = block[..., stride - k: stride - k + (take - 2) * stride + 1:
-                   stride]
-        rest = h * sl if rest is None else rest + h * sl
-    return jnp.concatenate([first, rest], axis=-1)
-
-
-def _sigma_from_window(window, noise_estimation, fixed_sigma, lead, dtype):
-    est = noise_estimation.lower()
-    if est == "mad":
-        # sort-free exact median: jnp.median lowers to a per-block SORT;
-        # the nibble counting passes (ops/thresholds.median_magnitude)
-        # match it bit-for-bit on the non-negative window
-        from ..ops.thresholds import median_magnitude
-
-        return median_magnitude(window) / 0.6745
-    if est == "std":
-        return jnp.std(window, axis=-1, keepdims=True)
-    if est == "fixed":
-        if fixed_sigma is None:
-            raise InvalidArgumentError(
-                ErrorCode.CFG_INVALID_CONFIG,
-                "noise_estimation='fixed' requires fixed_sigma",
-            )
-        return jnp.broadcast_to(
-            jnp.asarray(fixed_sigma, dtype=dtype), lead + (1,)
-        )
-    raise InvalidArgumentError(
-        ErrorCode.CFG_INVALID_CONFIG,
-        f"Unknown noise estimation: {noise_estimation!r}",
-        suggestions=("Use 'mad', 'std' or 'fixed'",),
-    )
-
-
-def streaming_denoise_block_kernel(
-    state: KernelStreamingDenoiserState,
-    block: jnp.ndarray,
-    wavelet,
-    *,
-    levels: int,
-    threshold_mode: str = "soft",
-    noise_estimation: str = "mad",
-    threshold_multiplier: float = 1.0,
-    fixed_sigma: float | None = None,
-    tile: int = 65536,
-    precision: str | None = None,
-    interpret: bool | None = None,
-) -> tuple[KernelStreamingDenoiserState, jnp.ndarray]:
-    """Kernel-tier streaming denoise step (zero boundary): one fused
-    analysis->threshold->synthesis kernel pass per block.
-
-    Semantics match :func:`streaming_denoise_block` with ``boundary='zero'``
-    up to kernel precision: analysis is whole-stream continuous via the
-    raw-x carry, the noise ring sees the same stratified level-1 samples,
-    and reconstruction zero-extends the block's coefficients (the fused
-    kernel's masked right halo; the left needs no extension because
-    synthesis reads only forward).  Blocks whose shape the fused kernel
-    cannot serve fall back to an equivalent jnp cascade on
-    ``[history | block]`` — same state layout, same results.
-    """
-    from ..config import get_fused_precision
-    from ..kernels.modwt_mxu import run_denoise_composite_stream
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    w = _resolve_discrete(wavelet)
-    if interpret is None:
-        interpret = not pallas_available()
-    prec = precision or get_fused_precision()
-    lead = block.shape[:-1]
-    n = block.shape[-1]
-    block2 = block.reshape(-1, n)
-    hist2 = state.history.reshape(-1, state.history.shape[-1])
-
-    take = min(16, n, state.noise_window.shape[-1])
-    d1_sub = _sampled_d1(hist2, block2, w, take).reshape(lead + (take,))
-    window, pos, fill = _update_noise_window(
-        state.noise_window, state.window_pos, state.window_fill, d1_sub
-    )
-    sigma = _sigma_from_window(
-        window, noise_estimation, fixed_sigma, lead, block.dtype
-    )
-    w_size = state.noise_window.shape[-1]
-    threshold = (
-        sigma * math.sqrt(2.0 * math.log(w_size)) * threshold_multiplier
-    )
-    ths = jnp.concatenate(
-        [
-            (threshold / jnp.sqrt(2.0**level)).reshape(-1, 1)
-            for level in range(1, levels + 1)
-        ],
-        axis=-1,
-    ).astype(jnp.float32)  # [B, levels]
-
-    filters_dec = _kernel_filters(w, synthesis=False)
-    filters_rec = _kernel_filters(w, synthesis=True)
-    out2 = run_denoise_composite_stream(
-        block2, hist2, ths, levels, filters_dec, filters_rec, tile,
-        threshold_mode, prec, interpret,
-    )
-    if out2 is None:
-        # jnp fallback with identical state layout: zero-boundary analysis
-        # of [history | block] equals the whole-stream coefficients for the
-        # block (analysis reads backward <= span), then block-local inverse
-        from ..transforms.multilevel import imodwt_multilevel, modwt_multilevel
-
-        span = hist2.shape[-1]
-        res = modwt_multilevel(
-            jnp.concatenate([hist2, block2], axis=-1), w, levels=levels,
-            boundary="zero", backend="jnp",
-        )
-        coeffs = MultiLevelMODWTResult(
-            tuple(d[..., span:] for d in res.details),
-            res.approx[..., span:],
-        )
-        denoised_details = tuple(
-            apply_threshold(d, ths[..., j - 1 : j], threshold_mode)
-            for j, d in enumerate(coeffs.details, start=1)
-        )
-        out2 = imodwt_multilevel(
-            MultiLevelMODWTResult(denoised_details, coeffs.approx), w,
-            boundary="zero", backend="jnp",
-        )
-    span = state.history.shape[-1]
-    new_hist = jnp.concatenate([hist2, block2], axis=-1)[..., -span:]
-    new_state = KernelStreamingDenoiserState(
-        new_hist.reshape(lead + (span,)).astype(state.history.dtype),
-        window, pos, fill,
-    )
-    return new_state, out2.reshape(lead + (n,))
-
-
-def streaming_denoise_blocks_kernel(
-    state: KernelStreamingDenoiserState,
-    blocks: jnp.ndarray,  # [K, ..., block]
-    wavelet,
-    *,
-    levels: int,
-    threshold_mode: str = "soft",
-    noise_estimation: str = "mad",
-    threshold_multiplier: float = 1.0,
-    fixed_sigma: float | None = None,
-    tile: int = 65536,
-    precision: str | None = None,
-    interpret: bool | None = None,
-) -> tuple[KernelStreamingDenoiserState, jnp.ndarray]:
-    """K buffered blocks in ONE fused kernel call — bit-identical to K
-    sequential :func:`streaming_denoise_block_kernel` steps.
-
-    The streaming carry is the RAW-INPUT tail, never an output: block i's
-    kernel pass depends only on block i-1's last ``span`` raw samples.
-    With K blocks in hand the K analysis->threshold->synthesis passes are
-    therefore independent — only the (cheap) noise-ring/sigma chain is
-    sequential.  This runs that chain as a ``lax.scan`` over the strided
-    d1 samples, then ONE ``[K*B, block]`` composite-kernel call with
-    per-block halos gathered from the neighbouring block tails, instead
-    of K kernel launches (measured: the per-launch cost, not the sigma
-    math, was the sequential path's remaining gap to the batch fused
-    denoise rate — VERDICT r04 #4 / tools/probe_sigma_cost.py).
-
-    Falls back to the sequential step when blocks are shorter than the
-    history span (a tail then crosses two blocks) or the kernel declines
-    the shape.  Reference contract: flush/buffered-batch semantics of
-    ``BatchStreamingMODWT.java:181-258`` + the streaming denoiser
-    ``MODWTStreamingDenoiser.java:94-199``.
-    """
-    k = blocks.shape[0]
-    lead = blocks.shape[1:-1]
-    n = blocks.shape[-1]
-    span = state.history.shape[-1]
-    w = _resolve_discrete(wavelet)
-    kwargs = dict(
-        levels=levels, threshold_mode=threshold_mode,
-        noise_estimation=noise_estimation,
-        threshold_multiplier=threshold_multiplier,
-        fixed_sigma=fixed_sigma, tile=tile, precision=precision,
-        interpret=interpret,
-    )
-    if n < span or k == 1:
-        outs = []
-        for i in range(k):
-            state, out = streaming_denoise_block_kernel(
-                state, blocks[i], wavelet, **kwargs
-            )
-            outs.append(out)
-        return state, jnp.stack(outs)
-
-    from ..config import get_fused_precision
-    from ..kernels.modwt_mxu import run_denoise_composite_stream
-    from ..kernels.modwt_pallas import _kernel_filters, pallas_available
-
-    if interpret is None:
-        interpret = not pallas_available()
-    prec = precision or get_fused_precision()
-
-    blocks2 = blocks.reshape(k, -1, n)
-    b2 = blocks2.shape[1]
-    # per-block halos: block 0 takes the state history, block i>0 the tail
-    # of block i-1 (n >= span so one predecessor suffices)
-    hists2 = jnp.concatenate(
-        [
-            state.history.reshape(1, -1, span).astype(blocks.dtype),
-            blocks2[:-1, :, n - span:],
-        ],
-        axis=0,
-    )
-    take = min(16, n, state.noise_window.shape[-1])
-    d1_all = _sampled_d1(
-        hists2.reshape(k * b2, span), blocks2.reshape(k * b2, n), w, take
-    ).reshape((k,) + lead + (take,))
-
-    def ring_step(carry, d1_k):
-        window, pos, fill = carry
-        window, pos, fill = _update_noise_window(window, pos, fill, d1_k)
-        sigma = _sigma_from_window(
-            window, noise_estimation, fixed_sigma, lead, blocks.dtype
-        )
-        return (window, pos, fill), sigma
-
-    (window, pos, fill), sigmas = jax.lax.scan(
-        ring_step,
-        (state.noise_window, state.window_pos, state.window_fill),
-        d1_all,
-    )
-    w_size = state.noise_window.shape[-1]
-    threshold = (
-        sigmas * math.sqrt(2.0 * math.log(w_size)) * threshold_multiplier
-    )  # [K, ..., 1]
-    ths = jnp.concatenate(
-        [
-            (threshold / jnp.sqrt(2.0**level)).reshape(k * b2, 1)
-            for level in range(1, levels + 1)
-        ],
-        axis=-1,
-    ).astype(jnp.float32)  # [K*B, levels]
-
-    out2 = run_denoise_composite_stream(
-        blocks2.reshape(k * b2, n), hists2.reshape(k * b2, span), ths,
-        levels, _kernel_filters(w, synthesis=False),
-        _kernel_filters(w, synthesis=True), tile, threshold_mode, prec,
-        interpret,
-    )
-    if out2 is None:
-        # kernel declined the flattened shape: sequential fallback
-        outs = []
-        for i in range(k):
-            state, out = streaming_denoise_block_kernel(
-                state, blocks[i], wavelet, **kwargs
-            )
-            outs.append(out)
-        return state, jnp.stack(outs)
-
-    new_state = KernelStreamingDenoiserState(
-        blocks2[-1, :, n - span:].reshape(lead + (span,)).astype(
-            state.history.dtype
-        ),
-        window, pos, fill,
-    )
-    return new_state, out2.reshape((k,) + lead + (n,))
-
-
 class StreamingDenoiser:
     """Convenience wrapper with reference-like ergonomics
     (``MODWTStreamingDenoiser.Builder`` :370-504): holds the state pytree and
@@ -502,78 +163,31 @@ class StreamingDenoiser:
         self.levels = levels
         self._dtype = dtype
         self._window_size = noise_window_size
-        # backend: None/'auto' = fused one-pass kernel tier on TPU f32 for
-        # zero boundary (the reference's fastest kernel IS its streaming
-        # kernel); jnp cascade elsewhere.  'pallas'/'jnp' force.
-        if backend not in (None, "auto", "pallas", "jnp"):
-            raise InvalidArgumentError(
-                ErrorCode.CFG_INVALID_CONFIG,
-                f"Unknown StreamingDenoiser backend {backend!r}",
-                suggestions=("Use None, 'auto', 'pallas' or 'jnp'",),
-            )
-        kernel_ok = (
-            dtype == jnp.float32
-            and boundary.lower() in ("zero", "zero_padding")
-        )
-        if backend == "pallas" and not kernel_ok:
-            # the fused streaming kernel implements zero-boundary f32 only
-            raise InvalidArgumentError(
-                ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
-                "backend='pallas' streaming denoise serves zero boundary "
-                f"at float32 (got boundary={boundary!r}, dtype={dtype})",
-                suggestions=("Use boundary='zero' with float32, or "
-                             "backend='jnp'",),
-            )
-        if backend in (None, "auto"):
-            from ..kernels.modwt_pallas import pallas_available
+        from ..transforms.multilevel import _check_backend
 
-            self._use_kernel = pallas_available() and kernel_ok
-        else:
-            self._use_kernel = backend == "pallas"
-        #: the RESOLVED backend ('pallas' or 'jnp').  Under 'auto' this
-        #: differs per environment, and so does the state pytree layout
-        #: (KernelStreamingDenoiserState raw-input tail vs per-level
-        #: StreamingDenoiserState) — checkpoints only restore onto an
-        #: instance resolved to the same backend; pass it explicitly when
-        #: moving a checkpoint between TPU and CPU (ADVICE r04).
-        self.backend = "pallas" if self._use_kernel else "jnp"
+        _check_backend(backend)
+        #: the resolved backend, recorded beside checkpoints
+        self.backend = "jnp"
         self.samples_processed = 0
         self.blocks_processed = 0
 
         import jax
 
-        if self._use_kernel:
-            self.state = kernel_streaming_denoiser_init(
-                self.wavelet, levels=levels,
-                noise_window_size=noise_window_size, dtype=dtype,
-            )
+        self.state = streaming_denoiser_init(
+            self.wavelet, levels=levels,
+            noise_window_size=noise_window_size, dtype=dtype,
+        )
 
-            def _step(state, block):
-                return streaming_denoise_block_kernel(
-                    state,
-                    block,
-                    self.wavelet,
-                    levels=self.levels,
-                    threshold_mode=self.threshold_mode,
-                    noise_estimation=self.noise_estimation,
-                    threshold_multiplier=self.threshold_multiplier,
-                )
-        else:
-            self.state = streaming_denoiser_init(
-                self.wavelet, levels=levels,
-                noise_window_size=noise_window_size, dtype=dtype,
+        def _step(state, block):
+            return streaming_denoise_block(
+                state,
+                block,
+                self.wavelet,
+                boundary=self.boundary,
+                threshold_mode=self.threshold_mode,
+                noise_estimation=self.noise_estimation,
+                threshold_multiplier=self.threshold_multiplier,
             )
-
-            def _step(state, block):
-                return streaming_denoise_block(
-                    state,
-                    block,
-                    self.wavelet,
-                    boundary=self.boundary,
-                    threshold_mode=self.threshold_mode,
-                    noise_estimation=self.noise_estimation,
-                    threshold_multiplier=self.threshold_multiplier,
-                )
 
         # jit the whole per-block update: one fused device step per block
         # (compiled once per distinct block shape)
@@ -586,24 +200,13 @@ class StreamingDenoiser:
 
     @state.setter
     def state(self, value):
-        expected = (
-            KernelStreamingDenoiserState
-            if self._use_kernel
-            else StreamingDenoiserState
-        )
-        if not isinstance(value, expected):
+        if not isinstance(value, StreamingDenoiserState):
             raise InvalidArgumentError(
                 ErrorCode.CFG_INVALID_CONFIG,
                 f"State layout {type(value).__name__} does not match this "
                 f"denoiser's resolved backend {self.backend!r} (expected "
-                f"{expected.__name__}). Checkpoints written under "
-                "backend='auto' carry the layout of the environment that "
-                "wrote them.",
-                suggestions=(
-                    "Construct StreamingDenoiser(backend="
-                    f"{'jnp' if self._use_kernel else 'pallas'!r}) to match "
-                    "the checkpoint, or re-init and replay.",
-                ),
+                "StreamingDenoiserState).",
+                suggestions=("Re-init and replay the stream",),
             )
         self._state = value
 
@@ -616,12 +219,7 @@ class StreamingDenoiser:
         return out
 
     def reset(self) -> None:
-        init = (
-            kernel_streaming_denoiser_init
-            if self._use_kernel
-            else streaming_denoiser_init
-        )
-        self.state = init(
+        self.state = streaming_denoiser_init(
             self.wavelet,
             levels=self.levels,
             noise_window_size=self._window_size,

@@ -1,6 +1,6 @@
 """Overlapping sliding-window streaming MODWT.
 
-TPU-native re-design of the reference's single-level streaming transform
+Re-design of the reference's single-level streaming transform
 (``/root/reference/vectorwave-core/.../modwt/streaming/MODWTStreamingTransformImpl.java:45-120``
 and ``MultiLevelMODWTStreamingTransform.java:169-203`` ``processSample``):
 
@@ -28,9 +28,13 @@ import jax
 import jax.numpy as jnp
 
 from ..errors import ErrorCode, InvalidArgumentError
-from ..kernels.modwt_pallas import total_halo
 from ..transforms.modwt import MODWTResult, _resolve_discrete, modwt
 from ..transforms.multilevel import MultiLevelMODWTResult, modwt_multilevel
+
+
+def total_halo(filter_length: int, levels: int) -> int:
+    """Cumulative cascade halo: sum_j (L0-1) 2^(j-1) = (L0-1)(2^J - 1)."""
+    return (filter_length - 1) * ((1 << levels) - 1)
 
 #: reference cap: MAX_BUFFER_SIZE bounded so the window stays under 100 MB
 _MAX_BUFFER_BYTES = 100 * 1024 * 1024

@@ -1,6 +1,6 @@
 """Block-streaming MODWT with explicit carry state.
 
-TPU-native re-design of the reference's streaming transforms
+Re-design of the reference's streaming transforms
 (``/root/reference/vectorwave-core/.../modwt/streaming/MODWTStreamingTransformImpl.java``,
 ``MultiLevelMODWTStreamingTransform.java`` and the extensions'
 ``BatchStreamingMODWT.java:19-458`` /
@@ -174,152 +174,6 @@ def modwt_stream_flush(
     return modwt_stream_block(state, zeros, wavelet, boundary=boundary)
 
 
-# ---------------------------------------------------------------------------
-# Kernel-tier block streaming: the composite MXU kernel with the carry as its
-# EXTERNAL HALO.  The reference's fastest kernel IS its streaming kernel (the
-# left-history SIMD hot loop serves chunked blocks directly,
-# BatchSIMDMODWT.java:447-508 serving BatchStreamingMODWT.java:19-458); here
-# the same role is played by kernels/modwt_mxu.run_analysis_composite, whose
-# ``halo=`` input (built for the distributed tier's ppermute exchange,
-# parallel/tiled.py:283-310) is exactly the streaming carry: because the
-# composite formulation computes every plane DIRECTLY from x, the carry is
-# just the last ``span`` RAW INPUT samples — no per-level histories needed.
-# ---------------------------------------------------------------------------
-
-
-class KernelStreamingState(NamedTuple):
-    """Carry for the kernel-tier stream: raw-input tail + block counter."""
-
-    history: jnp.ndarray  # [..., span] last raw samples seen
-    blocks_processed: jnp.ndarray  # scalar int32
-
-
-def kernel_history_length(wavelet, levels: int) -> int:
-    """Composite-filter support: (L0-1)(2^J - 1) raw samples."""
-    from ..kernels.modwt_mxu import composite_halo_samples
-
-    w = _resolve_discrete(wavelet)
-    return composite_halo_samples(w.filter_length, levels)
-
-
-def kernel_streaming_init(
-    wavelet,
-    levels: int,
-    *,
-    batch_shape: tuple[int, ...] = (),
-    dtype=jnp.float32,
-) -> KernelStreamingState:
-    """Zero-history initial state for :func:`modwt_stream_block_kernel`."""
-    span = kernel_history_length(wavelet, levels)
-    return KernelStreamingState(
-        jnp.zeros(batch_shape + (max(span, 1),), dtype=dtype),
-        jnp.zeros((), dtype=jnp.int32),
-    )
-
-
-def modwt_stream_block_kernel(
-    state: KernelStreamingState,
-    block: jnp.ndarray,
-    wavelet,
-    *,
-    levels: int,
-    boundary: str = "zero",
-    tile: int = 65536,
-    interpret: bool | None = None,
-    precision: str | None = None,
-) -> tuple[KernelStreamingState, MultiLevelMODWTResult]:
-    """Kernel-tier streaming step: (state, block) -> (state, coefficients).
-
-    Semantics match :func:`modwt_stream_block` (concatenated block outputs
-    equal the whole-signal transform for zero/symmetric; periodic is
-    per-block circular), but the compute runs through the composite MXU
-    kernel with the carry fed as the kernel's external left halo — the same
-    rate class as the whole-signal transform instead of the portable jnp
-    cascade.  Scan/jit-friendly; not differentiable (the raw kernel path
-    has no VJP here — use :func:`modwt_stream_block` for gradients).
-
-    ``symmetric``: the whole-signal transform mirrors the signal HEAD, so
-    the first block's leading ``span`` outputs are spliced from the exact
-    jnp symmetric cascade on the block head (selected by the carry's block
-    counter, so the step stays jittable); blocks must be at least
-    ``round_up(span, 128)`` samples long in this mode so every later block
-    lies beyond the mirror's influence.
-    """
-    from ..config import get_fused_precision
-    from ..kernels.modwt_mxu import run_analysis_composite
-    from ..kernels.modwt_pallas import (
-        _kernel_filters,
-        _round_up,
-        pallas_available,
-    )
-
-    if interpret is None:
-        interpret = not pallas_available()
-    prec = precision or get_fused_precision()
-    w = _resolve_discrete(wavelet)
-    boundary_l = boundary.lower()
-    filters = _kernel_filters(w, synthesis=False)
-    lead = block.shape[:-1]
-    n_block = block.shape[-1]
-    block2 = block.reshape(-1, n_block)
-    span = kernel_history_length(w, levels)
-
-    if boundary_l.startswith("per"):
-        outs = run_analysis_composite(
-            block2, levels, filters, True, tile, prec, interpret
-        )
-        new_state = KernelStreamingState(
-            state.history, state.blocks_processed + 1
-        )
-    else:
-        if boundary_l not in ("zero", "zero_padding", "symmetric", "sym"):
-            raise InvalidArgumentError(
-                ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
-                f"Unsupported streaming boundary: {boundary!r}",
-                suggestions=("Use 'zero', 'symmetric' or 'periodic'",),
-            )
-        symmetric = boundary_l.startswith("sym")
-        hist2 = state.history.reshape(-1, state.history.shape[-1])
-        outs = run_analysis_composite(
-            block2, levels, filters, False, tile, prec, interpret,
-            halo=hist2.astype(block2.dtype),
-        )
-        if symmetric:
-            w_head = _round_up(span, 128)
-            if n_block < max(w_head, 1):
-                raise InvalidArgumentError(
-                    ErrorCode.VAL_TOO_SHORT,
-                    "symmetric kernel streaming needs blocks >= "
-                    f"{w_head} samples (filter span {span}); got {n_block}",
-                    suggestions=(
-                        "Use larger blocks or modwt_stream_block (jnp tier)",
-                    ),
-                )
-            from ..kernels.modwt_symmetric import _jnp_symmetric_cascade
-
-            head_d, head_a = _jnp_symmetric_cascade(
-                block2[..., :w_head], w, levels
-            )
-            heads = tuple(head_d) + (head_a,)
-            is_first = state.blocks_processed == 0
-            spliced = []
-            for body, head in zip(outs, heads):
-                head_sel = jnp.where(is_first, head[..., :span],
-                                     body[..., :span])
-                spliced.append(
-                    jnp.concatenate([head_sel, body[..., span:]], axis=-1)
-                )
-            outs = tuple(spliced)
-        new_hist = jnp.concatenate([hist2, block2], axis=-1)[..., -max(span, 1):]
-        new_state = KernelStreamingState(
-            new_hist.reshape(lead + (max(span, 1),)).astype(state.history.dtype),
-            state.blocks_processed + 1,
-        )
-    details = tuple(o.reshape(lead + (n_block,)) for o in outs[:levels])
-    approx = outs[levels].reshape(lead + (n_block,))
-    return new_state, MultiLevelMODWTResult(details, approx)
-
-
 class StreamingTransform:
     """Convenience stateful wrapper with reference-like ergonomics
     (``MODWTStreamingTransform`` / ``MultiLevelMODWTStreamingTransform``:
@@ -340,41 +194,22 @@ class StreamingTransform:
     ) -> None:
         import jax
 
+        from ..transforms.multilevel import _check_backend
+
+        _check_backend(backend)
         self.wavelet = _resolve_discrete(wavelet)
         self.levels = levels
         self.boundary = boundary
         self._batch_shape = batch_shape
         self._dtype = dtype
-        # backend: None/'auto' = kernel tier on TPU f32 (the reference's
-        # fastest kernel IS its streaming kernel), jnp cascade elsewhere;
-        # 'pallas'/'jnp' force.  The kernel state is a raw-input tail, the
-        # jnp state per-level histories — chosen at construction.
-        if backend in (None, "auto"):
-            from ..kernels.modwt_pallas import pallas_available
-
-            self._use_kernel = (
-                pallas_available() and dtype in (jnp.float32, jnp.bfloat16)
+        self.state = streaming_init(
+            self.wavelet, levels, batch_shape=batch_shape, dtype=dtype
+        )
+        self._step = jax.jit(
+            lambda st, blk: modwt_stream_block(
+                st, blk, self.wavelet, boundary=boundary
             )
-        else:
-            self._use_kernel = backend == "pallas"
-        if self._use_kernel:
-            self.state = kernel_streaming_init(
-                self.wavelet, levels, batch_shape=batch_shape, dtype=dtype
-            )
-            self._step = jax.jit(
-                lambda st, blk: modwt_stream_block_kernel(
-                    st, blk, self.wavelet, levels=levels, boundary=boundary
-                )
-            )
-        else:
-            self.state = streaming_init(
-                self.wavelet, levels, batch_shape=batch_shape, dtype=dtype
-            )
-            self._step = jax.jit(
-                lambda st, blk: modwt_stream_block(
-                    st, blk, self.wavelet, boundary=boundary
-                )
-            )
+        )
         self.samples_processed = 0
         self.blocks_processed = 0
 
@@ -387,36 +222,15 @@ class StreamingTransform:
 
     def flush(self, tail_length: int | None = None) -> MultiLevelMODWTResult:
         """Drain the carried history (``flush``)."""
-        if self._use_kernel:
-            if tail_length is None:
-                tail_length = suggest_flush_tail_length(self.wavelet, self.levels)
-            n_pad = tail_length
-            if self.boundary.lower().startswith("sym"):
-                # symmetric kernel blocks must cover the head-splice window
-                from ..kernels.modwt_pallas import _round_up
-
-                n_pad = max(
-                    tail_length,
-                    _round_up(kernel_history_length(self.wavelet, self.levels), 128),
-                )
-            zeros = jnp.zeros(self._batch_shape + (n_pad,), dtype=self._dtype)
-            self.state, coeffs = self._step(self.state, zeros)
-            if n_pad != tail_length:
-                coeffs = MultiLevelMODWTResult(
-                    tuple(d[..., :tail_length] for d in coeffs.details),
-                    coeffs.approx[..., :tail_length],
-                )
-        else:
-            self.state, coeffs = modwt_stream_flush(
-                self.state, self.wavelet, tail_length, boundary=self.boundary
-            )
+        self.state, coeffs = modwt_stream_flush(
+            self.state, self.wavelet, tail_length, boundary=self.boundary
+        )
         self.blocks_processed += 1
         return coeffs
 
     def reset(self) -> None:
         """Clear all history (``reset``)."""
-        init = kernel_streaming_init if self._use_kernel else streaming_init
-        self.state = init(
+        self.state = streaming_init(
             self.wavelet, self.levels, batch_shape=self._batch_shape, dtype=self._dtype
         )
         self.samples_processed = 0

@@ -1,10 +1,10 @@
-"""2-D continuous wavelet transform: scales x orientations, TPU-native.
+"""2-D continuous wavelet transform: scales x orientations.
 
 Extends the 1-D CWT engine (``transforms/cwt.py``, reference
 ``CWTTransform.java``) to images — the analysis the reference's 2-D-free API
 cannot do: directional texture/edge analysis over a scale-angle grid.
 
-Design (all frequency domain — the TPU-natural form):
+Design (all frequency domain):
 
 * a wavelet is *defined by its 2-D spectrum* ``psi_hat(kx, ky)`` (angular
   frequency, radians/sample).  The scale-``s``, angle-``theta`` filter is

@@ -1,6 +1,6 @@
 """MODWT-based inverse CWT.
 
-TPU-native re-design of ``MODWTBasedInverseCWT``
+Re-design of ``MODWTBasedInverseCWT``
 (``/root/reference/vectorwave-core/.../wavelet/cwt/MODWTBasedInverseCWT.java:40-...``):
 reconstruct a signal from CWT coefficients by mapping dyadic CWT scales onto
 MODWT levels and running the exact inverse MODWT.  The reference documents

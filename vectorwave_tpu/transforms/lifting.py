@@ -14,7 +14,7 @@ JPEG2000 standardised.  It earns its place here for two reasons:
   working length and each step is a 1-2 tap shifted add on the half-rate
   grid, which XLA fuses into one elementwise pass per step.
 
-TPU mapping: the polyphase split is a strided slice (``x[..., ::2]``), every
+Mapping: the polyphase split is a strided slice (``x[..., ::2]``), every
 lifting step is ``jnp.roll`` + multiply-add on ``[..., N/2]`` lanes, and the
 whole cascade is a fixed unrolled sequence — static shapes, no gather.
 Boundaries are PERIODIC (the lifting analogue of the engine's exact mode);

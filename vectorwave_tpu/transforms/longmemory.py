@@ -25,7 +25,7 @@ of the Percival–Walden wavelet variance (ch. 9):
   Kolmogorov distribution.  Returns the statistic, the critical value,
   and the argmax location mapped back to signal time.
 
-TPU-native notes: both are batched over leading axes and jittable end to
+Implementation notes: both are batched over leading axes and jittable end to
 end — the regression is a closed-form weighted least squares over the level
 axis (no host loop), the CUSUM test is one masked ``cumsum`` + reduction.
 Critical values are tiny host-side scalar solves (bisection on the

@@ -1,6 +1,6 @@
 """Single-level MODWT forward/inverse.
 
-TPU-native re-design of ``MODWTTransform``
+Re-design of ``MODWTTransform``
 (``/root/reference/vectorwave-core/.../wavelet/modwt/MODWTTransform.java:131-296``):
 pure jittable functions over ``[..., N]`` arrays instead of a stateful transform
 object.  Filters are scaled by 1/sqrt(2) (the MODWT shift-invariance scaling,

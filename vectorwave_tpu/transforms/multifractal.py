@@ -12,7 +12,7 @@ replacement for modulus-maxima chaining — and, unlike WTMM, fully batched:
 leaders are running maxima over the dyadic tree (a ``log2`` cascade of
 pairwise maxima + a 3-neighborhood max per level), and every estimator is a
 weighted linear regression over levels, so the whole analysis is a few
-dozen fused element-wise ops on TPU.
+dozen fused element-wise ops.
 
 Estimators (q a static grid):
 

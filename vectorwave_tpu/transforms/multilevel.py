@@ -1,6 +1,6 @@
 """Multi-level MODWT decomposition / reconstruction (à trous cascade).
 
-TPU-native re-design of ``MultiLevelMODWTTransform``
+Re-design of ``MultiLevelMODWTTransform``
 (``/root/reference/vectorwave-core/.../wavelet/modwt/MultiLevelMODWTTransform.java:82-824``)
 and its internal ``SymmetricAlignmentStrategy`` (``SymmetricAlignmentStrategy.java:23-120``).
 
@@ -9,12 +9,11 @@ Scaling convention (the bit-parity invariant, ``ScalarOps.java:909-916`` and
 level-j à trous filter built by upsampling the base filter with ``2^(j-1)-1``
 zeros and scaling by ``1/sqrt(2)`` *per stage*; the cascade composes the stage
 scalings into the textbook ``2^(-j/2)``.  We never materialize the upsampled
-filter — the convolution ops take the base filter plus a stride, which on TPU
-avoids touching the inserted zeros entirely.
+filter — the convolution ops take the base filter plus a stride, so the
+inserted zeros are never touched.
 
 The level loop is a Python unroll (J <= 10, static at trace time) so every
-level's stride and filter are compile-time constants; XLA fuses each level into
-a single fused HBM pass, and the Pallas fast path fuses the whole cascade.
+level's stride and filter are compile-time constants for XLA.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..errors import ErrorCode, InvalidArgumentError
@@ -74,77 +74,60 @@ class MultiLevelMODWTResult(NamedTuple):
         return stacked / stacked.sum(axis=-1, keepdims=True)
 
 
-class ExactMODWTResult(NamedTuple):
-    """Exact-tier multi-level result: every plane is a double-float pair.
-
-    ``details``/``approx`` are the f32 leading words — drop-in compatible
-    with :class:`MultiLevelMODWTResult` consumers; ``details_lo``/
-    ``approx_lo`` carry the trailing words (~48 effective mantissa bits
-    combined).  Combine ``hi + lo`` in f64 on the host for a
-    full-precision reading; feed the whole result back to
-    :func:`imodwt_multilevel` for the <=1e-10 round trip (the reference's
-    default-path accuracy contract, ModwtPeriodicRoundTripTest.java:37).
-    """
-
-    details: tuple[jnp.ndarray, ...]
-    approx: jnp.ndarray
-    details_lo: tuple[jnp.ndarray, ...]
-    approx_lo: jnp.ndarray
-
-    @property
-    def levels(self) -> int:
-        return len(self.details)
-
-    @property
-    def signal_length(self) -> int:
-        return self.approx.shape[-1]
-
-
-#: Requested max |error| -> cheapest precision tier that meets it, with
-#: ~10x margin over the committed on-chip round-trip RMSEs
-#: (BENCH_LATEST.json: bf16 3.5e-3, bf16_3x 6.8e-6, float32 1.0e-7; the
-#: exact tier's balanced profile measures RMSE 3-6e-12 / max ~2e-11,
-#: its full profile ~1e-13 — kernels/modwt_exact.PROFILES).  Thresholds
-#: are ladder boundaries, not error claims.
-_TOLERANCE_LADDER = ((3e-2, "bf16"), (1e-4, "bf16_3x"), (3e-6, "float32"))
+#: Requested max |error| -> precision tier.  Budgets at or above the
+#: float32 bound are met by the float32 cascade (round-trip RMSE ~1.6e-7 on
+#: unit-variance input); tighter budgets run the cascade in float64.
+_FLOAT32_MIN_TOLERANCE = 3e-6
 
 
 def resolve_tolerance(tolerance: float) -> str:
-    """Map a requested max error to a precision tier
-    (``bf16 | bf16_3x | float32 | exact``).
+    """Map a requested max error to a precision tier (``float32 | exact``).
 
     The reference's public API is f64 end-to-end and its default round
-    trip meets <1e-9 (ModwtPeriodicRoundTripTest.java:37); this ladder
-    makes that contract reachable from the default TPU API without
-    knowing the tier names: ``modwt_multilevel(x, w, tolerance=1e-10)``
-    routes to the exact tier.
+    trip meets <1e-9 (ModwtPeriodicRoundTripTest.java:37); the ``exact``
+    tier makes that contract reachable without knowing the tier names:
+    ``modwt_multilevel(x, w, tolerance=1e-10)`` runs the float64 cascade.
     """
     if not (tolerance > 0):
         raise InvalidArgumentError(
             ErrorCode.CFG_INVALID_CONFIG,
             f"tolerance must be positive, got {tolerance}",
         )
-    for bound, tier in _TOLERANCE_LADDER:
-        if tolerance >= bound:
-            return tier
-    return "exact"
+    return "float32" if tolerance >= _FLOAT32_MIN_TOLERANCE else "exact"
+
+
+_VALID_PRECISIONS = ("float32", "exact")
 
 
 def _resolve_tier(tolerance, precision) -> str | None:
     """Combine the ``tolerance=`` / ``precision=`` kwargs into a tier
-    (explicit ``precision`` wins; both None = config default)."""
+    (explicit ``precision`` wins; both None = the input's own dtype)."""
     if precision is not None:
-        valid = ("float32", "bf16_3x", "bf16", "exact")
-        if precision not in valid:
+        if precision not in _VALID_PRECISIONS:
             raise InvalidArgumentError(
                 ErrorCode.CFG_INVALID_CONFIG,
                 f"Unknown precision {precision!r}",
-                suggestions=(f"Use one of {valid}",),
+                suggestions=(f"Use one of {_VALID_PRECISIONS}",),
             )
         return precision
     if tolerance is not None:
         return resolve_tolerance(tolerance)
     return None
+
+
+def _as_float64(x: jnp.ndarray) -> jnp.ndarray:
+    """Upcast for the exact tier, which needs 64-bit mode to exist."""
+    if not jax.config.jax_enable_x64:
+        raise InvalidArgumentError(
+            ErrorCode.CFG_INVALID_CONFIG,
+            "The exact tier (tolerance below 3e-6 or precision='exact') runs "
+            "the cascade in float64, which needs jax_enable_x64",
+            suggestions=(
+                "Call jax.config.update('jax_enable_x64', True) at startup",
+                "Or request tolerance >= 3e-6 (the float32 tier)",
+            ),
+        )
+    return x.astype(jnp.float64)
 
 
 def max_levels(signal_length: int, wavelet) -> int:
@@ -178,68 +161,22 @@ def _check_level_fits(w: DiscreteWavelet, level: int, n: int) -> None:
         )
 
 
-_VALID_BACKENDS = (None, "auto", "jnp", "pallas")
+_VALID_BACKENDS = (None, "auto", "jnp")
 
 
-def _resolve_backend(backend: str | None, eligible) -> bool:
-    """Map the ``backend`` argument to a use-Pallas decision.
+def _check_backend(backend: str | None) -> None:
+    """Validate the ``backend`` argument.
 
-    ``None``/``'auto'`` routes by eligibility; ``'jnp'`` forces the portable
-    path (the reference's forceScalar analogue, TransformConfig.java:54);
-    ``'pallas'`` forces the fused kernels; anything else raises.
-    ``eligible`` is a thunk so 'jnp'/'pallas' skip the probe entirely.
+    ``None``/``'auto'``/``'jnp'`` all select the XLA cascade (the
+    reference's forceScalar analogue, TransformConfig.java:54, is kept as
+    ``'jnp'``); anything else raises.
     """
     if backend not in _VALID_BACKENDS:
         raise InvalidArgumentError(
             ErrorCode.CFG_INVALID_CONFIG,
             f"Unknown backend {backend!r}",
-            suggestions=("Use one of 'auto', 'jnp', 'pallas' (or None)",),
+            suggestions=("Use 'auto' or 'jnp' (or None)",),
         )
-    if backend == "pallas":
-        return True
-    if backend == "jnp":
-        return False
-    return eligible()
-
-
-def _pallas_eligible(
-    x: jnp.ndarray,
-    w: DiscreteWavelet,
-    levels: int,
-    boundary: str,
-    synthesis: bool = False,
-) -> bool:
-    """Whether the fused Pallas path can serve this call (TPU backend, f32/bf16,
-    filter halo fits the tile budget).  All three boundary modes are served
-    in both directions since round 3 (symmetric = composite kernel body +
-    jnp edge splice, kernels/modwt_symmetric.py)."""
-    from ..config import get_backend
-
-    backend = get_backend()
-    if backend == "jnp":
-        return False
-    from ..kernels.modwt_pallas import pallas_available, total_halo
-
-    if backend == "auto" and not pallas_available():
-        return False
-    if x.dtype not in (jnp.float32, jnp.bfloat16):
-        return False
-    b = boundary.lower()
-    if not (b.startswith("per") or b.startswith("zero") or b.startswith("sym")):
-        return False
-    if levels < 2:
-        return False
-    n = x.shape[-1]
-    # Short signals (streaming windows, small demos) stay on the jnp path:
-    # below ~4K samples the MXU kernel has no bandwidth advantage (the whole
-    # problem fits VMEM; dispatch latency dominates), its banded-matmul
-    # tiling degenerates, and tiny shapes are outside the on-silicon
-    # validation envelope (tools/tpu_smoke.py: 16K+).  Explicit
-    # backend="pallas" still forces the kernel at any size.
-    if n < 4096:
-        return False
-    halo_pad = -(-max(total_halo(w.filter_length, levels), 1) // 128) * 128
-    return halo_pad <= n
 
 
 def modwt_multilevel(
@@ -255,19 +192,18 @@ def modwt_multilevel(
     """Multi-level MODWT decomposition (``decompose`` :209-254).
 
     At level j the previous approximation is convolved with the base filters at
-    stride ``2^(j-1)``, scaled ``1/sqrt(2)`` per stage.  On TPU with f32/bf16
-    and periodic/zero boundaries, the whole cascade runs as one fused Pallas
-    kernel (``backend='auto'``; pass ``backend='jnp'`` to force the portable
-    path — the reference's forceScalar analogue).
+    stride ``2^(j-1)``, scaled ``1/sqrt(2)`` per stage.  ``backend`` accepts
+    ``'auto'``/``'jnp'`` (the same XLA cascade) for compatibility.
 
     ``tolerance=`` requests a max-error budget and auto-routes the
     precision tier (:func:`resolve_tolerance`); ``precision=`` picks one
-    explicitly (``bf16 | bf16_3x | float32 | exact``).  The ``exact``
-    tier returns an :class:`ExactMODWTResult` (double-float planes) whose
-    round trip through :func:`imodwt_multilevel` stays <=1e-10 — the
-    reference's default-path contract (ModwtPeriodicRoundTripTest.java:37)
-    reachable without reading PERF.md.
+    explicitly (``float32 | exact``).  The ``exact`` tier upcasts the input
+    and returns float64 planes whose round trip through
+    :func:`imodwt_multilevel` stays <=1e-10 — the reference's default-path
+    contract (ModwtPeriodicRoundTripTest.java:37).  It needs
+    ``jax_enable_x64``.
     """
+    _check_backend(backend)
     w = _resolve_discrete(wavelet)
     _validate_signal(x)
     n = x.shape[-1]
@@ -280,54 +216,8 @@ def modwt_multilevel(
             context={"signal_length": n, "wavelet": w.name},
         )
     _check_level_fits(w, levels, n)
-
-    tier = _resolve_tier(tolerance, precision)
-    if tier == "exact" and x.dtype == jnp.float64:
-        tier = None  # the f64 jnp path is already exact-grade
-    if tier == "exact":
-        from ..kernels.modwt_exact import modwt_multilevel_exact
-        from ..kernels.modwt_pallas import pallas_available
-
-        batch_shape = x.shape[:-1]
-        flat = x.reshape((-1, n)) if x.ndim > 2 else x
-        # tolerances under 5e-11 escalate to the full (~1e-13) slice
-        # geometry: the balanced profile's measured worst-case error is
-        # ~2e-11 (PROFILES docstring), so budgets below 5e-11 would eat
-        # its margin; the balanced profile serves the <=1e-10 contract
-        profile = (
-            "full" if tolerance is not None and tolerance < 5e-11
-            else "balanced"
-        )
-        dpairs, apair = modwt_multilevel_exact(
-            flat.astype(jnp.float32), w, levels=levels, boundary=boundary,
-            interpret=not pallas_available(), profile=profile,
-        )
-        if x.ndim > 2:
-            dpairs = tuple(
-                (h.reshape(batch_shape + (n,)), l.reshape(batch_shape + (n,)))
-                for h, l in dpairs
-            )
-            apair = tuple(p.reshape(batch_shape + (n,)) for p in apair)
-        return ExactMODWTResult(
-            tuple(h for h, _ in dpairs), apair[0],
-            tuple(l for _, l in dpairs), apair[1],
-        )
-
-    use_pallas = _resolve_backend(
-        backend, lambda: _pallas_eligible(x, w, levels, boundary)
-    )
-    if use_pallas:
-        from ..kernels.modwt_pallas import fused_analysis
-
-        batch_shape = x.shape[:-1]
-        flat = x.reshape((-1, n)) if x.ndim != 1 else x
-        details, approx = fused_analysis(
-            flat, w, levels=levels, boundary=boundary, precision=tier
-        )
-        if x.ndim > 2:
-            details = tuple(d.reshape(batch_shape + (n,)) for d in details)
-            approx = approx.reshape(batch_shape + (n,))
-        return MultiLevelMODWTResult(tuple(details), approx)
+    if _resolve_tier(tolerance, precision) == "exact":
+        x = _as_float64(x)
 
     low = w.dec_lo * _INV_SQRT2
     high = w.dec_hi * _INV_SQRT2
@@ -455,20 +345,16 @@ def imodwt_multilevel(
 ) -> jnp.ndarray:
     """Multi-level MODWT reconstruction, coarsest to finest
     (``reconstruct`` :339-349 + ``applyScaledInverseMODWT`` :554-645).
-    Routes through the fused Pallas synthesis kernel on TPU like
-    :func:`modwt_multilevel`.
 
-    An :class:`ExactMODWTResult` (from ``tolerance=``/``precision='exact'``
-    analysis) routes through the exact synthesis kernels; the returned f32
-    signal is the correctly rounded double-float reconstruction, so the
-    round trip against an f32 input is <=1e-10 (typically bit-exact).
+    ``tolerance=``/``precision=`` requesting the exact tier need float64
+    planes (from :func:`modwt_multilevel` with the same request): planes
+    already rounded to float32 cannot meet a sub-float32 budget, and the
+    alignment-shifted symmetric inverse is a boundary approximation, so
+    both raise.
     """
+    _check_backend(backend)
     w = _resolve_discrete(wavelet)
-    tier = _resolve_tier(tolerance, precision)
-    if isinstance(result, ExactMODWTResult):
-        from ..kernels.modwt_exact import imodwt_multilevel_exact
-        from ..kernels.modwt_pallas import pallas_available
-
+    if _resolve_tier(tolerance, precision) == "exact":
         if boundary.lower().startswith("sym"):
             raise InvalidArgumentError(
                 ErrorCode.CFG_UNSUPPORTED_BOUNDARY,
@@ -477,68 +363,17 @@ def imodwt_multilevel(
                 "approximation by design (docs/API.md, "
                 "MultiLevelMODWTTransform.java:602-642)",
                 suggestions=("Use periodic/zero boundaries for the exact "
-                             "round trip, or the default tiers for a "
-                             "symmetric inverse",),
+                             "round trip",),
             )
-        n = result.approx.shape[-1]
-        batch_shape = result.approx.shape[:-1]
-        flatten = result.approx.ndim > 2
-
-        def _flat(p):
-            return p.reshape((-1, n)) if flatten else p
-
-        dpairs = tuple(
-            (_flat(h), _flat(l))
-            for h, l in zip(result.details, result.details_lo)
-        )
-        apair = (_flat(result.approx), _flat(result.approx_lo))
-        hi, _lo = imodwt_multilevel_exact(
-            dpairs, apair, w, boundary=boundary,
-            interpret=not pallas_available(),
-            profile=(
-                "full" if tolerance is not None and tolerance < 5e-11
-                else "balanced"
-            ),
-        )
-        # double-float invariant: hi == fl(hi + lo) — hi IS the correctly
-        # rounded f32 reconstruction; lo carries the ~1e-13 residual
-        return hi.reshape(batch_shape + (n,)) if flatten else hi
-    if tier == "exact":
-        if result.approx.dtype == jnp.float64:
-            tier = None  # f64 jnp path below is exact-grade
-        else:
+        if result.approx.dtype != jnp.float64:
             raise InvalidArgumentError(
                 ErrorCode.CFG_INVALID_CONFIG,
                 "tolerance/precision requests the exact tier, but this "
-                "result carries plain f32 planes (the analysis already "
+                "result carries float32 planes (the analysis already "
                 "rounded them)",
                 suggestions=("Run modwt_multilevel with the same tolerance=/"
-                             "precision= so it returns an ExactMODWTResult",),
+                             "precision= so it returns float64 planes",),
             )
-    use_pallas = _resolve_backend(
-        backend,
-        lambda: _pallas_eligible(
-            result.approx, w, result.levels, boundary, synthesis=True
-        ),
-    )
-    if use_pallas:
-        # (forced backend='pallas' + symmetric reaches fused_synthesis,
-        # which raises — auto routing excludes it via synthesis=True above)
-        from ..kernels.modwt_pallas import fused_synthesis
-
-        n = result.approx.shape[-1]
-        batch_shape = result.approx.shape[:-1]
-        if result.approx.ndim > 2:
-            details = tuple(d.reshape((-1, n)) for d in result.details)
-            approx = result.approx.reshape((-1, n))
-        else:
-            details, approx = result.details, result.approx
-        out = fused_synthesis(
-            details, approx, w, boundary=boundary, precision=tier
-        )
-        if result.approx.ndim > 2:
-            out = out.reshape(batch_shape + (n,))
-        return out
     low = w.rec_lo * _INV_SQRT2
     high = w.rec_hi * _INV_SQRT2
     boundary_l = boundary.lower()

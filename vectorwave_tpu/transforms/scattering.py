@@ -13,7 +13,7 @@ small deformations, and — unlike a spectrogram — S2 captures amplitude-
 modulation structure that survives the first modulus.  The classic
 front-end for ML on audio/biomedical/financial series.
 
-TPU-native formulation: the whole filterbank (Morlet band-passes, ``Q``
+Formulation: the whole filterbank (Morlet band-passes, ``Q``
 per octave, plus a Gaussian lowpass) is built ONCE in the frequency domain
 at trace time; every order is a batched ``rfft``/``irfft`` product over a
 stacked path axis, so the full network is a handful of large FFT+elementwise

@@ -5,7 +5,7 @@ smeared across scales is reassigned to each coefficient's INSTANTANEOUS
 frequency, collapsing a blurred scalogram ridge into a near-line — the
 modern tool for resolving close modes and extracting them individually.
 
-TPU-native notes:
+Implementation notes:
 
 * The reassignment uses the wrap-free phase increment
   ``angle(W_{t+1} conj W_t)`` (no unwrapping, no finite-difference of

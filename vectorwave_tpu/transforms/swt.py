@@ -1,6 +1,6 @@
 """Stationary Wavelet Transform (SWT) facade over the MODWT.
 
-TPU-native re-design of the reference's ``VectorWaveSwtAdapter``
+Re-design of the reference's ``VectorWaveSwtAdapter``
 (``/root/reference/vectorwave-core/.../wavelet/swt/VectorWaveSwtAdapter.java:89-686``):
 the SWT is the same undecimated cascade as the multi-level MODWT, exposed with
 SWT conventions.  The adapter's *mutable* coefficient workflow

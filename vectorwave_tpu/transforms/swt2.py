@@ -5,7 +5,7 @@ is 1-D only — ``vectorwave-core/.../swt/VectorWaveSwtAdapter.java:89-686``;
 this extends its conventions to images the way ``pywt.swt2`` extends
 ``pywt.swt``).  Coefficients are identical to :func:`.twodim.
 modwt2_multilevel`'s, so everything here is functional pytree editing over
-that engine — which routes through the true 2-D Pallas kernels on TPU.
+that engine.
 """
 
 from __future__ import annotations

@@ -1,9 +1,8 @@
 """2-D wavelet transforms (separable), beyond the reference's scope.
 
-The reference is 1-D only; 2-D is a natural extension on TPU because the
+The reference is 1-D only; 2-D is a natural extension because the
 separable construction is exactly two batched 1-D passes — the row pass
-vectorizes over columns and vice versa, each a clean MXU/VPU-friendly
-batched convolution.  Conventions follow the 1-D engine: undecimated
+vectorizes over columns and vice versa, each a batched convolution.  Conventions follow the 1-D engine: undecimated
 MODWT2 with per-stage 1/sqrt(2) scaling and the same three boundary modes;
 decimated DWT2 with the `ops.dwt` indexing.
 
@@ -114,97 +113,6 @@ def _analysis2_level(x, low, high, spacing, boundary):
     return MODWT2Result(ll=ll, lh=lh, hl=hl, hh=hh)
 
 
-def _modwt2_symmetric_fast(x, w, levels):
-    """Symmetric-boundary 2-D analysis through the ZERO-boundary Pallas
-    kernel, one call per level.
-
-    Half-point symmetric extension is periodic over ``[x, flip(x)]``
-    (ops/convolve.py module docstring) and is re-applied to the CURRENT
-    level input at every stage, so one global pad cannot serve the whole
-    cascade (verified: only level 1 matches).  Instead each level
-    reflect-pads the current approximation TOP/LEFT by its own à trous
-    span (analysis reads only backward — the zero region beyond the pad
-    is never read by kept outputs), runs ONE single-level kernel call
-    with the zero-stuffed level-j filters, and crops.  Returns None when
-    ineligible (caller falls back to the jnp cascade)."""
-    import numpy as np
-
-    import jax
-
-    from ..config import get_fused_precision
-    from ..kernels.modwt2_pallas import (
-        _modwt2_analysis_call,
-        modwt2_pallas_eligible,
-    )
-    from ..kernels.modwt_pallas import pallas_available
-
-    h, w_ = x.shape[-2], x.shape[-1]
-    lead = x.shape[:-2]
-    inv = 1.0 / math.sqrt(2.0)
-
-    def up(f, s):
-        arr = np.zeros(s * (len(f) - 1) + 1, dtype=np.float64)
-        arr[::s] = np.asarray(f, np.float64)
-        return arr
-
-    # precheck every level before any compute
-    pads = []
-    for level in range(1, levels + 1):
-        spacing = 1 << (level - 1)
-        span = (w.filter_length - 1) * spacing
-        pad_h = span + (-(h + span)) % 256
-        pad_w = span + (-(w_ + span)) % 256
-        if pad_h > h or pad_w > w_:  # jnp.pad symmetric cannot exceed dim
-            return None
-        probe = jax.ShapeDtypeStruct(
-            lead + (h + pad_h, w_ + pad_w), x.dtype
-        )
-        if not modwt2_pallas_eligible(probe, w, 1, "zero"):
-            return None
-        # the single-level call's own span/halo check uses the STUFFED
-        # filter length, which modwt2_pallas_eligible (levels=1) does not
-        # see — mirror the kernel's hb <= 4 guard here
-        if -(-span // 128) > 4:
-            return None
-        pads.append((spacing, pad_h, pad_w))
-
-    prec = get_fused_precision()
-    interp = not pallas_available()
-    cur = x.reshape((-1,) + x.shape[-2:])
-    details = []
-    for (spacing, pad_h, pad_w) in pads:
-        filters = (
-            tuple((up(w.dec_lo, spacing) * inv).tolist()),
-            tuple((up(w.dec_hi, spacing) * inv).tolist()),
-        )
-        curp = jnp.pad(
-            cur, [(0, 0), (pad_h, 0), (pad_w, 0)], mode="symmetric"
-        )
-        x4 = curp.reshape(curp.shape[0], curp.shape[1], -1, 128)
-        wk = x4.shape[2]
-        # deep-halo calls cap the tile at 2, like the main Pallas path: a
-        # 1-level hb=4 wtile=4 analysis call overflowed Mosaic's 16 MB
-        # scoped budget (21.2 MB)
-        hb_lvl = -(-((w.filter_length - 1) * spacing) // 128)
-        cap = 4 if hb_lvl <= 2 else 2
-        wtile = min(cap, 4 if wk % 4 == 0 else (2 if wk % 2 == 0 else 1))
-        lh, hl, hh, ll = _modwt2_analysis_call(
-            x4, levels=1, filters=filters, wtile=wtile, periodic=False,
-            precision=prec, interpret=interp,
-        )
-
-        def crop(v, pad_h=pad_h, pad_w=pad_w):
-            return v[..., pad_h:, pad_w:]
-
-        details.append(tuple(
-            crop(p).reshape(lead + (h, w_)) for p in (lh, hl, hh)
-        ))
-        cur = crop(ll)
-    return MultiLevelMODWT2Result(
-        tuple(details), cur.reshape(lead + (h, w_))
-    )
-
-
 def modwt2_multilevel(
     x: jnp.ndarray,
     wavelet,
@@ -224,32 +132,6 @@ def modwt2_multilevel(
     w = _resolve_discrete(wavelet)
     n_min = min(x.shape[-1], x.shape[-2])
     _check_level_fits(w, levels, n_min)
-    from ..kernels.modwt2_pallas import modwt2_pallas_eligible
-
-    if modwt2_pallas_eligible(x, w, levels, boundary):
-        # true 2-D Pallas kernel: both separable passes in VMEM, subbands
-        # written in standard layout (no transposes/rolls through HBM)
-        from ..config import get_fused_precision
-        from ..kernels.modwt2_pallas import modwt2_multilevel_pallas
-        from ..kernels.modwt_pallas import pallas_available
-
-        details, ll = modwt2_multilevel_pallas(
-            x, w, levels, boundary, get_fused_precision(),
-            interpret=not pallas_available(),
-        )
-        return MultiLevelMODWT2Result(details, ll)
-    if boundary.lower().startswith("sym"):
-        fast = _modwt2_symmetric_fast(x, w, levels)
-        if fast is not None:
-            return fast
-    if _fast2_eligible(x, levels, boundary):
-        from ..config import get_fused_precision
-        from ..kernels.modwt2_mxu import modwt2_multilevel_fast
-
-        details, ll = modwt2_multilevel_fast(
-            x, w, levels, boundary, get_fused_precision()
-        )
-        return MultiLevelMODWT2Result(details, ll)
     low = w.dec_lo * _INV_SQRT2
     high = w.dec_hi * _INV_SQRT2
     details = []
@@ -260,22 +142,6 @@ def modwt2_multilevel(
         details.append((res.lh, res.hl, res.hh))
         cur = res.ll
     return MultiLevelMODWT2Result(tuple(details), cur)
-
-
-def _fast2_eligible(x, levels: int, boundary: str) -> bool:
-    """Route the separable pyramid through the banded-MXU-matmul composite
-    path (kernels/modwt2_mxu.py) on the TPU backend; ``set_backend('jnp')``
-    forces the portable per-level à trous path."""
-    from ..config import get_backend
-    from ..kernels.modwt_pallas import pallas_available
-    from ..kernels.modwt2_mxu import modwt2_eligible
-
-    backend = get_backend()
-    if backend == "jnp":
-        return False
-    if backend != "pallas" and not pallas_available():
-        return False
-    return modwt2_eligible(x, levels, boundary)
 
 
 def _inv_axis(a, d, low, high, spacing, boundary_l, w, level):
@@ -301,113 +167,6 @@ def _inv_axis(a, d, low, high, spacing, boundary_l, w, level):
     return rec_a + rec_d
 
 
-def _imodwt2_symmetric_fast(result, w):
-    """Symmetric-boundary 2-D inverse through the Pallas synthesis kernel,
-    one 4-plane call per level.
-
-    Each level's separable inverse expands to
-    ``W~low (x) H~low * cur + W~low (x) H~high * hl + W~high (x) H~low * lh
-    + W~high (x) H~high * hh`` — exactly the synthesis kernel's per-plane
-    (w_taps, h_taps) form (``pairs_override``).  The symmetric alignment's
-    per-level sign/offset (:func:`_inv_axis`) folds into DENSE tap arrays:
-    a read at ``t + sign*spacing*l + offset`` is a forward read at
-    ``t + m`` with ``m = sign*(spacing*l - tau)``; shifting all taps by the
-    global minimum ``M`` and cropping the output at ``pad_left + M`` makes
-    every read forward.  Planes are reflect-padded (half-point symmetric =
-    the 2N-periodic extension both ways) so the zero-boundary kernel never
-    reads its zero region.  Returns None when ineligible."""
-    import numpy as np
-
-    from ..config import get_backend, get_fused_precision
-    from ..kernels.modwt2_pallas import _modwt2_synthesis_call
-    from ..kernels.modwt_pallas import pallas_available
-
-    if get_backend() == "jnp":
-        return None
-    if get_backend() == "auto" and not pallas_available():
-        return None
-    approx = result.approx
-    if approx.dtype != jnp.float32:
-        return None
-    levels = result.levels
-    h, w_ = approx.shape[-2], approx.shape[-1]
-    lead = approx.shape[:-2]
-    low = np.asarray(w.rec_lo, np.float64) * _INV_SQRT2
-    high = np.asarray(w.rec_hi, np.float64) * _INV_SQRT2
-
-    def spec(filt, plus, tau, spacing):
-        """{m: coeff} with m = sign*(spacing*l - tau)."""
-        out = {}
-        for l, v in enumerate(filt):
-            m = (spacing * l - tau) if plus else (tau - spacing * l)
-            out[m] = out.get(m, 0.0) + float(v)
-        return out
-
-    plans = []
-    for level in range(levels, 0, -1):
-        spacing = 1 << (level - 1)
-        dec = _symmetric_alignment(w, level)
-        tau_h = _tau_j(w.rec_lo.shape[0], level) + dec.delta_approx
-        tau_g = _tau_j(w.rec_hi.shape[0], level) + dec.delta_detail
-        a_spec = spec(low, dec.approx_plus, tau_h, spacing)
-        d_spec = spec(high, dec.detail_plus, tau_g, spacing)
-        m_min = min(min(a_spec), min(d_spec))
-        m_max = max(max(a_spec), max(d_spec))
-        span = m_max - m_min
-        if span > 4 * 128:
-            return None
-
-        def dense(sp, m_min=m_min, m_max=m_max):
-            arr = np.zeros(m_max - m_min + 1, np.float64)
-            for m, v in sp.items():
-                arr[m - m_min] = v
-            return tuple(arr.tolist())
-
-        a_t, d_t = dense(a_spec), dense(d_spec)
-        pairs = ((a_t, a_t), (a_t, d_t), (d_t, a_t), (d_t, d_t))
-
-        def pads(n):
-            pl_ = max(0, -m_min)
-            pr = max(0, m_max)
-            pr += (-(n + pl_ + pr)) % 256
-            return pl_, pr
-
-        pl_h, pr_h = pads(h)
-        pl_w, pr_w = pads(w_)
-        if max(pl_h, pr_h) > h or max(pl_w, pr_w) > w_:
-            return None  # jnp.pad symmetric cannot exceed the dim
-        plans.append((level, pairs, m_min, pl_h, pr_h, pl_w, pr_w))
-
-    prec = get_fused_precision()
-    interp = not pallas_available()
-    cur = approx.reshape((-1,) + approx.shape[-2:])
-    for (level, pairs, m_min, pl_h, pr_h, pl_w, pr_w) in plans:
-        lh, hl, hh = (
-            p.reshape((-1,) + p.shape[-2:])
-            for p in result.details[level - 1]
-        )
-        padded = []
-        for p in (cur, hl, lh, hh):
-            padded.append(jnp.pad(
-                p, [(0, 0), (pl_h, pr_h), (pl_w, pr_w)], mode="symmetric"
-            ))
-        p4 = tuple(
-            p.reshape(p.shape[0], p.shape[1], -1, 128) for p in padded
-        )
-        wk = p4[0].shape[2]
-        hb = max(1, -(-(len(pairs[0][0]) - 1) // 128))
-        wtile = (8 if hb == 1 and wk % 8 == 0 else
-                 (4 if wk % 4 == 0 else (2 if wk % 2 == 0 else 1)))
-        out = _modwt2_synthesis_call(
-            p4, levels=1, filters=((1.0,), (1.0,)), wtile=wtile,
-            periodic=False, precision=prec, interpret=interp,
-            pairs_override=pairs,
-        )
-        r0, c0 = pl_h + m_min, pl_w + m_min
-        cur = out[..., r0 : r0 + h, c0 : c0 + w_]
-    return cur.reshape(lead + (h, w_))
-
-
 def imodwt2_multilevel(
     result: MultiLevelMODWT2Result,
     wavelet,
@@ -415,29 +174,6 @@ def imodwt2_multilevel(
     boundary: str = "periodic",
 ) -> jnp.ndarray:
     w = _resolve_discrete(wavelet)
-    from ..kernels.modwt2_pallas import modwt2_pallas_eligible
-
-    if boundary.lower().startswith("sym"):
-        fast = _imodwt2_symmetric_fast(result, w)
-        if fast is not None:
-            return fast
-    if modwt2_pallas_eligible(result.approx, w, result.levels, boundary):
-        from ..config import get_fused_precision
-        from ..kernels.modwt2_pallas import imodwt2_multilevel_pallas
-        from ..kernels.modwt_pallas import pallas_available
-
-        return imodwt2_multilevel_pallas(
-            result.details, result.approx, w, boundary,
-            get_fused_precision(), interpret=not pallas_available(),
-        )
-    if _fast2_eligible(result.approx, result.levels, boundary):
-        from ..config import get_fused_precision
-        from ..kernels.modwt2_mxu import imodwt2_multilevel_fast
-
-        return imodwt2_multilevel_fast(
-            result.details, result.approx, w, boundary,
-            get_fused_precision(),
-        )
     low = w.rec_lo * _INV_SQRT2
     high = w.rec_hi * _INV_SQRT2
     boundary_l = boundary.lower()

@@ -13,7 +13,7 @@ variance,
 estimated unbiasedly by averaging only the ``M_j = N - L_j + 1`` coefficients
 unaffected by the circular boundary (``L_j = (L-1)(2^j - 1) + 1``).
 
-TPU-native notes: all level loops are trace-time Python over static levels;
+Implementation notes: all level loops are trace-time Python over static levels;
 each estimator is a masked mean over the time axis (one fused reduction per
 level), batched over leading axes, jittable end-to-end.  Confidence
 intervals use the chi-squared equivalent-degrees-of-freedom approximation

@@ -7,7 +7,7 @@ frequency, ridge extraction, wavelet coherence —
 implements none of them; this module delivers the toolkit (Torrence &
 Compo 1998 conventions).
 
-TPU-native notes:
+Implementation notes:
 
 * The Torrence–Compo smoothing operator runs as ONE batched spectral
   multiply: the per-scale Gaussian time kernels ``exp(-t^2 / 2 s^2)`` have
@@ -15,12 +15,11 @@ TPU-native notes:
   ``irfft(rfft(P) * bank)`` — no per-scale loop, no truncated kernels.
   Scale smoothing is a boxcar moving mean along the scale axis.
 * Ridge extraction is a Viterbi dynamic program over time.  A naive scan
-  is latency-bound (~2 us per tiny step on TPU), so long signals use a
+  is latency-bound (one tiny dependent step per sample), so long signals use a
   BLOCKED max-plus formulation: per-block transfer matrices built batched
   across all blocks, a short boundary scan, then parallel forward+backward
-  expansion with ``path = argmax(F + B)`` — no sequential backtrack.
-  44x faster than the scan at 32 scales x 65536 samples (5.9 ms vs 258 ms
-  on one v5e chip), exactly the same optimum.
+  expansion with ``path = argmax(F + B)`` — no sequential backtrack, and
+  exactly the same optimum (speed on the H100 not measured).
 * Instantaneous frequency avoids phase unwrapping entirely:
   ``angle(W_{t+1} * conj(W_t))`` is the already-wrapped phase increment.
 """
@@ -280,9 +279,8 @@ def _viterbi_indices_blocked(
 ) -> jnp.ndarray:
     """Blocked max-plus Viterbi, parallel over time blocks.
 
-    A sequential scan over N time steps is latency-bound on TPU (~2 us per
-    tiny [S]-wide step: 65536 steps measured ~200 ms for S=32).  This
-    formulation does the same DP with O(N/block + block) sequential depth:
+    A sequential scan over N time steps is latency-bound (one tiny
+    [S]-wide dependent step per sample).  This formulation does the same DP with O(N/block + block) sequential depth:
 
     1. Per-block max-plus TRANSFER matrices ``W_b[i,j]`` (best within-block
        path entering at state i, leaving at j) — one scan of ``block`` steps
@@ -381,9 +379,7 @@ def extract_ridge(
     continuous ridges through noise gaps.  Long signals use a blocked
     max-plus DP (parallel over time blocks — see
     :func:`_viterbi_indices_blocked`); short ones a plain ``lax.scan``
-    Viterbi.  Jittable, batched over leading axes.  (Measured on one
-    TPU v5e chip at 32 scales x 65536 samples: blocked 5.9 ms vs 258 ms
-    sequential — the scan is latency-bound at ~2 us/step.)
+    Viterbi.  Jittable, batched over leading axes.
     """
     if smoothness < 0:
         raise InvalidArgumentError(

@@ -1,44 +1,50 @@
-"""On-disk cache for generated filter coefficient arrays.
+"""Filter coefficients of the built-in discrete families.
 
-Filter generation (spectral factorization, Gauss-Newton refinement) is exact
-but can take seconds per family at high order; coefficients are tiny arrays,
-so they are memoized to ``~/.cache/vectorwave_tpu/filters`` keyed by a schema
-version + generator key.  Delete the directory to force regeneration.
+Generating a filter (spectral factorization at 80 digits, Gauss-Newton
+refinement) needs ``mpmath`` and takes up to seconds per order, so the float64
+coefficients of every built-in family are committed in :mod:`._tables`,
+written by ``tools/gen_filter_tables.py`` from :func:`builtin_generators`.
+A key outside the table (for example a Battle-Lemarié filter at a
+non-default length) is generated on request.
 """
 
 from __future__ import annotations
 
-import os
+import functools
 from typing import Callable
 
 import numpy as np
 
-_SCHEMA_VERSION = 1
-
-
-def _cache_dir() -> str:
-    root = os.environ.get("VECTORWAVE_TPU_CACHE") or os.path.expanduser(
-        "~/.cache/vectorwave_tpu"
-    )
-    path = os.path.join(root, f"filters_v{_SCHEMA_VERSION}")
-    os.makedirs(path, exist_ok=True)
-    return path
-
 
 def cached_filter(key: str, generate: Callable[[], np.ndarray]) -> np.ndarray:
-    """Return the cached array for ``key`` or generate-and-store it."""
-    path = os.path.join(_cache_dir(), f"{key}.npy")
-    try:
-        return np.load(path)
-    except (OSError, ValueError):
-        pass
-    arr = np.asarray(generate(), dtype=np.float64)
-    # tmp name must END in .npy: np.save appends the suffix otherwise, which
-    # silently broke the rename (and thus the whole cache) before
-    tmp = f"{path}.{os.getpid()}.tmp.npy"
-    try:
-        np.save(tmp, arr)
-        os.replace(tmp, path)
-    except OSError:  # cache dir unwritable: still return the result
-        pass
-    return arr
+    """The committed coefficients for ``key``, else ``generate()``."""
+    from ._tables import FILTERS
+
+    coeffs = FILTERS.get(key)
+    if coeffs is None:
+        return np.asarray(generate(), dtype=np.float64)
+    return np.array(coeffs, dtype=np.float64)
+
+
+def builtin_generators() -> dict[str, Callable[[], np.ndarray]]:
+    """Table key -> generator for every filter the registry builds."""
+    from . import biorthogonal, coiflets, fourier_families, orthogonal
+
+    gens: dict[str, Callable[[], np.ndarray]] = {}
+    for p in range(2, 39):
+        gens[f"db{p}"] = functools.partial(orthogonal._daubechies_generate, p)
+    for p in range(2, 21):
+        gens[f"sym{p}"] = functools.partial(orthogonal._symlet_filter_uncached, p)
+    for order in range(1, coiflets.MAX_ORDER + 1):
+        gens[f"coif{order}"] = functools.partial(coiflets._coiflet_generate, order)
+    for nr, nd in biorthogonal.VARIANTS:
+        gens[f"bior{nr}.{nd}"] = functools.partial(
+            biorthogonal._biorthogonal_generate, nr, nd
+        )
+    gens["dmey62"] = functools.partial(fourier_families._dmey_generate, 62)
+    for order in range(1, 6):
+        length = 4 * (order + 1)
+        gens[f"blem{order}_{length}"] = functools.partial(
+            fourier_families._battle_lemarie_generate, order, length
+        )
+    return gens

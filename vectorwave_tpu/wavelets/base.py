@@ -1,6 +1,6 @@
 """Wavelet type system.
 
-TPU-native re-design of the reference's sealed ``Wavelet`` hierarchy
+Re-design of the reference's sealed ``Wavelet`` hierarchy
 (``/root/reference/vectorwave-core/.../wavelet/api/Wavelet.java:41-183``,
 ``OrthogonalWavelet.java``, ``BiorthogonalWavelet.java``,
 ``ContinuousWavelet.java``): instead of an interface tree, wavelets are frozen

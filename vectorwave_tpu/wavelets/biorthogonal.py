@@ -1,7 +1,7 @@
 """Biorthogonal spline (CDF) wavelets, generated from the Cohen-Daubechies-
 Feauveau construction.
 
-TPU-native counterpart of the reference's hardcoded tables
+Counterpart of the reference's hardcoded tables
 (``/root/reference/vectorwave-core/.../wavelet/api/BiorthogonalSpline.java``,
 ``ReverseBiorthogonalSpline.java``, BIOR1.1-6.8 / RBIO1.1-6.8).  Instead of
 tables, every pair is generated from the defining construction:
@@ -32,7 +32,6 @@ from __future__ import annotations
 import functools
 import math
 
-import mpmath as mp
 import numpy as np
 
 from .base import DiscreteWavelet, biorthogonal_wavelet, qmf_alternate
@@ -54,6 +53,8 @@ _VARIANTS: dict[tuple[int, int], int] = {
 def _halfband_roots(big_l: int) -> list[tuple[mp.mpc, ...]]:
     """Root groups (real singletons / conjugate pairs) of P(y), sorted by |Im|
     then Re so the split assignment is deterministic."""
+    import mpmath as mp
+
     from .orthogonal import _group_y_roots, _halfband_y_roots
 
     if big_l <= 1:
@@ -65,6 +66,8 @@ def _halfband_roots(big_l: int) -> list[tuple[mp.mpc, ...]]:
 
 def _factor_poly(groups: list[tuple[mp.mpc, ...]]) -> list[mp.mpf]:
     """Product of palindromic quadratics z^2 - (2-4y)z + 1 over all roots."""
+    import mpmath as mp
+
     poly = [mp.mpf(1)]
     for group in groups:
         for y in group:
@@ -79,6 +82,8 @@ def _factor_poly(groups: list[tuple[mp.mpc, ...]]) -> list[mp.mpf]:
 
 def _lowpass(order: int, groups: list[tuple[mp.mpc, ...]]) -> np.ndarray:
     """sqrt(2)-normalized (1+z)^order times assigned root factors."""
+    import mpmath as mp
+
     with mp.workdps(60):
         binom = [mp.mpf(math.comb(order, k)) for k in range(order + 1)]
         factors = _factor_poly(groups)
@@ -111,50 +116,54 @@ def _roundtrip_error(dec_lo: np.ndarray, rec_lo: np.ndarray) -> float:
     return float(np.max(np.abs(x - xr)))
 
 
+def _biorthogonal_generate(nr: int, nd: int) -> np.ndarray:
+    """Packed ``[len(dec), dec..., rec...]`` for biorNr.Nd."""
+    big_l = (nr + nd) // 2
+    groups = _halfband_roots(big_l)
+    n_rec_groups = _VARIANTS[(nr, nd)]
+    rec_groups = groups[:n_rec_groups]
+    dec_groups = groups[n_rec_groups:]
+    dec_lo = _lowpass(nd, dec_groups)
+    rec_lo = _lowpass(nr, rec_groups)
+    # Equalize lengths with centered zero padding (both filters are
+    # symmetric and share length parity), so the alternating-sign QMF
+    # construction produces phase-aligned high-pass filters — this is
+    # exactly why the published tables carry leading/trailing zeros.
+    diff = len(dec_lo) - len(rec_lo)
+    half = abs(diff) // 2
+    if diff > 0:
+        rec_lo = np.concatenate([np.zeros(half), rec_lo, np.zeros(abs(diff) - half)])
+    elif diff < 0:
+        dec_lo = np.concatenate([np.zeros(half), dec_lo, np.zeros(abs(diff) - half)])
+    # Resolve any residual one-sample polyphase delay by a tiny search.
+    best = None
+    for pad_dec in range(2):
+        for pad_rec in range(2):
+            cand_dec = np.concatenate([np.zeros(pad_dec), dec_lo, np.zeros(pad_rec)])
+            cand_rec = np.concatenate([np.zeros(pad_rec), rec_lo, np.zeros(pad_dec)])
+            err = _roundtrip_error(cand_dec, cand_rec)
+            if best is None or err < best[0]:
+                best = (err, cand_dec, cand_rec)
+    err, dec_best, rec_best = best
+    if err > 1e-10:
+        raise AssertionError(
+            f"bior{nr}.{nd} alignment search failed (best error {err:.2e})"
+        )
+    # pack both into one array for the cache: [len_dec, dec..., rec...]
+    return np.concatenate([[len(dec_best)], dec_best, rec_best])
+
+
 @functools.lru_cache(maxsize=None)
 def biorthogonal_filters(nr: int, nd: int) -> tuple[np.ndarray, np.ndarray]:
     """(dec_lo, rec_lo) for biorNr.Nd, aligned for exact MODWT reconstruction."""
     if (nr, nd) not in _VARIANTS:
         raise ValueError(f"Unsupported biorthogonal variant bior{nr}.{nd}")
 
-    def generate() -> np.ndarray:
-        big_l = (nr + nd) // 2
-        groups = _halfband_roots(big_l)
-        n_rec_groups = _VARIANTS[(nr, nd)]
-        rec_groups = groups[:n_rec_groups]
-        dec_groups = groups[n_rec_groups:]
-        dec_lo = _lowpass(nd, dec_groups)
-        rec_lo = _lowpass(nr, rec_groups)
-        # Equalize lengths with centered zero padding (both filters are
-        # symmetric and share length parity), so the alternating-sign QMF
-        # construction produces phase-aligned high-pass filters — this is
-        # exactly why the published tables carry leading/trailing zeros.
-        diff = len(dec_lo) - len(rec_lo)
-        half = abs(diff) // 2
-        if diff > 0:
-            rec_lo = np.concatenate([np.zeros(half), rec_lo, np.zeros(abs(diff) - half)])
-        elif diff < 0:
-            dec_lo = np.concatenate([np.zeros(half), dec_lo, np.zeros(abs(diff) - half)])
-        # Resolve any residual one-sample polyphase delay by a tiny search.
-        best = None
-        for pad_dec in range(2):
-            for pad_rec in range(2):
-                cand_dec = np.concatenate([np.zeros(pad_dec), dec_lo, np.zeros(pad_rec)])
-                cand_rec = np.concatenate([np.zeros(pad_rec), rec_lo, np.zeros(pad_dec)])
-                err = _roundtrip_error(cand_dec, cand_rec)
-                if best is None or err < best[0]:
-                    best = (err, cand_dec, cand_rec)
-        err, dec_best, rec_best = best
-        if err > 1e-10:
-            raise AssertionError(
-                f"bior{nr}.{nd} alignment search failed (best error {err:.2e})"
-            )
-        # pack both into one array for the cache: [len_dec, dec..., rec...]
-        return np.concatenate([[len(dec_best)], dec_best, rec_best])
-
     from ._cache import cached_filter
 
-    packed = cached_filter(f"bior{nr}.{nd}", generate)
+    packed = cached_filter(
+        f"bior{nr}.{nd}", functools.partial(_biorthogonal_generate, nr, nd)
+    )
     split = int(packed[0])
     return packed[1 : 1 + split], packed[1 + split :]
 

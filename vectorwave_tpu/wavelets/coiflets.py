@@ -1,6 +1,6 @@
 """Coiflet wavelets: published seeds refined to machine precision.
 
-TPU-native counterpart of the reference's hardcoded tables
+Counterpart of the reference's hardcoded tables
 (``/root/reference/vectorwave-core/.../wavelet/api/Coiflet.java:38-...``,
 COIF1-COIF17).  Published coiflet tables are rounded (the reference relaxes its
 own coif2 tolerance to 1e-4, ``Wavelet.java:125``); here the table values are
@@ -26,7 +26,6 @@ from __future__ import annotations
 import functools
 import math
 
-import mpmath as mp
 import numpy as np
 
 from ._coiflet_seeds import SEEDS
@@ -86,6 +85,8 @@ def _max_scaled_residual(h: np.ndarray, order: int, tau: int) -> float:
 
 def _refine_mp(h: np.ndarray, order: int, tau: int, dps: int = 50) -> np.ndarray:
     """High-precision Gauss-Newton polish for ill-conditioned orders."""
+    import mpmath as mp
+
     length = 6 * order
     with mp.workdps(dps):
         hv = mp.matrix([mp.mpf(v) for v in h])
@@ -147,18 +148,26 @@ def coiflet_filter(order: int) -> np.ndarray:
     if order < 1 or order > MAX_ORDER:
         raise ValueError(f"Coiflet order must be in [1, {MAX_ORDER}], got {order}")
 
-    def generate() -> np.ndarray:
-        seed = np.asarray(SEEDS[order], dtype=np.float64)
-        n = np.arange(len(seed))
-        tau = round(float((n * seed).sum()) / _SQRT2)
-        h = _refine_f64(seed, order, tau)
-        if _max_scaled_residual(h, order, tau) > 1e-13:
-            h = _refine_mp(h, order, tau)
-        return h
-
     from ._cache import cached_filter
 
-    return cached_filter(f"coif{order}", generate)
+    return cached_filter(
+        f"coif{order}", functools.partial(_coiflet_generate, order)
+    )
+
+
+def _coiflet_generate(order: int) -> np.ndarray:
+    seed = np.asarray(SEEDS[order], dtype=np.float64)
+    tau = _moment_center(seed)
+    h = _refine_f64(seed, order, tau)
+    if _max_scaled_residual(h, order, tau) > 1e-13:
+        h = _refine_mp(h, order, tau)
+    return h
+
+
+def _moment_center(h: np.ndarray) -> int:
+    """Scaling-moment center tau of a coiflet filter (``sum n h_n / sqrt 2``)."""
+    n = np.arange(len(h))
+    return round(float((n * h).sum()) / _SQRT2)
 
 
 def coiflet(order: int) -> DiscreteWavelet:

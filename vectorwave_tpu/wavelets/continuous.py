@@ -1,6 +1,6 @@
 """Continuous (CWT) wavelet library.
 
-TPU-native counterpart of the reference's CWT wavelet classes
+Counterpart of the reference's CWT wavelet classes
 (``/root/reference/vectorwave-core/.../wavelet/cwt/*.java`` and
 ``cwt/finance/*.java``: Morlet, ComplexMorlet, MexicanHat/Ricker,
 MATLABMexicanHat, GaussianDerivative, ComplexGaussian, Shannon,

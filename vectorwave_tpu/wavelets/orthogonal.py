@@ -1,6 +1,6 @@
 """Orthogonal wavelet families generated by spectral factorization.
 
-TPU-native counterpart of the reference's coefficient classes
+Counterpart of the reference's coefficient classes
 (``/root/reference/vectorwave-core/.../wavelet/api/{Haar,Daubechies,Symlet}.java``
 and ``util/DaubechiesGenerator.java``).  The reference hardcodes low orders and
 *generates* high orders numerically; here every order is generated from the
@@ -31,7 +31,6 @@ from __future__ import annotations
 import functools
 import math
 
-import mpmath as mp
 import numpy as np
 
 from .base import DiscreteWavelet, orthogonal_wavelet
@@ -47,6 +46,8 @@ _MP_DPS = 80
 
 def _halfband_y_roots(p: int) -> list[mp.mpc]:
     """Roots of P(y) = sum_{k<p} C(p-1+k, k) y^k at high precision."""
+    import mpmath as mp
+
     if p == 1:  # Haar: P(y) = 1, no roots
         return []
     with mp.workdps(_MP_DPS):
@@ -56,6 +57,8 @@ def _halfband_y_roots(p: int) -> list[mp.mpc]:
 
 def _z_root_pair(y: mp.mpc) -> tuple[mp.mpc, mp.mpc]:
     """Solve z^2 - (2-4y) z + 1 = 0; returns (inside, outside) unit-circle roots."""
+    import mpmath as mp
+
     c = 1 - 2 * y
     disc = mp.sqrt(c * c - 1)
     z1 = c + disc
@@ -67,6 +70,8 @@ def _z_root_pair(y: mp.mpc) -> tuple[mp.mpc, mp.mpc]:
 
 def _poly_from_roots(roots: list[mp.mpc]) -> list[mp.mpc]:
     """Monic polynomial (ascending coeffs) with the given roots."""
+    import mpmath as mp
+
     poly = [mp.mpc(1)]
     for r in roots:
         nxt = [mp.mpc(0)] * (len(poly) + 1)
@@ -79,6 +84,8 @@ def _poly_from_roots(roots: list[mp.mpc]) -> list[mp.mpc]:
 
 def _build_filter(p: int, z_roots: list[mp.mpc]) -> np.ndarray:
     """h = normalize( (1+z)^p * prod (z - z_i) ), reference big-endian order."""
+    import mpmath as mp
+
     with mp.workdps(_MP_DPS):
         root_poly = _poly_from_roots(z_roots)
         binom = [mp.mpf(math.comb(p, k)) for k in range(p + 1)]
@@ -101,6 +108,8 @@ def _build_filter(p: int, z_roots: list[mp.mpc]) -> np.ndarray:
 
 def _group_y_roots(y_roots: list[mp.mpc]) -> list[tuple[mp.mpc, ...]]:
     """Group roots of the real polynomial P into real singletons and conjugate pairs."""
+    import mpmath as mp
+
     used = [False] * len(y_roots)
     groups: list[tuple[mp.mpc, ...]] = []
     for i, y in enumerate(y_roots):
@@ -134,15 +143,18 @@ def daubechies_filter(p: int) -> np.ndarray:
     if p == 1:
         return np.array([1.0 / _SQRT2, 1.0 / _SQRT2])
 
-    def generate() -> np.ndarray:
-        with mp.workdps(_MP_DPS):
-            y_roots = _halfband_y_roots(p)
-            z_roots = [_z_root_pair(y)[0] for y in y_roots]  # all inside: minimum phase
-            return _build_filter(p, z_roots)
-
     from ._cache import cached_filter
 
-    return cached_filter(f"db{p}", generate)
+    return cached_filter(f"db{p}", functools.partial(_daubechies_generate, p))
+
+
+def _daubechies_generate(p: int) -> np.ndarray:
+    import mpmath as mp
+
+    with mp.workdps(_MP_DPS):
+        y_roots = _halfband_y_roots(p)
+        z_roots = [_z_root_pair(y)[0] for y in y_roots]  # all inside: minimum phase
+        return _build_filter(p, z_roots)
 
 
 def _phase_nonlinearity(h: np.ndarray) -> float:
@@ -174,10 +186,12 @@ def symlet_filter(p: int) -> np.ndarray:
 
     from ._cache import cached_filter
 
-    return cached_filter(f"sym{p}", lambda: _symlet_filter_uncached(p))
+    return cached_filter(f"sym{p}", functools.partial(_symlet_filter_uncached, p))
 
 
 def _symlet_filter_uncached(p: int) -> np.ndarray:
+    import mpmath as mp
+
     with mp.workdps(_MP_DPS):
         y_roots = _halfband_y_roots(p)
         groups = _group_y_roots(y_roots)

@@ -1,6 +1,6 @@
 """Wavelet registry: name -> wavelet resolution plus family/compat queries.
 
-TPU-native re-design of the reference registry
+Re-design of the reference registry
 (``/root/reference/vectorwave-core/.../wavelet/api/WaveletRegistry.java:18-412``
 and ``WaveletName.java``): instead of a mutable ConcurrentHashMap populated by
 static initializers and ServiceLoader providers, this is a plain dict of lazy
